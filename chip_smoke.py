@@ -1,0 +1,684 @@
+"""Drive the PyTorch/CUDA port (vo_tpu_torch) on one NVIDIA GPU and check it.
+
+Run from the repository root on a machine with a CUDA card:
+
+    python3 chip_smoke.py
+
+Phases, each of which raises on failure (the script then exits non-zero):
+
+1. build: nvcc compiles both kernels (csrc/*.cu) for sm_90a, in parallel;
+2. kernels: each kernel against its plain PyTorch version on the card, on
+   the inputs the main path gives it at KITTI shape (376x1241, ORB-3000,
+   2996 tracked points): B1 (LK level) at bf16 and f32 on all four levels,
+   and at 240x320, with an f64 run of the plain version as the witness of
+   which points are rounding-sensitive; B2 (separable blur) on the
+   1408x1280 Harris canvas plus an odd shape, asymmetric taps and the
+   widest radius; then each is timed with CUDA events beside its plain
+   version (and B2 beside cuDNN);
+3. pipeline: the tracking_orb preset over a 60-frame synthetic KITTI-shape
+   sequence whose frame 45 is textureless (forcing a re-detect), with the
+   launch counters zeroed just before and read just after; fps, ATE and
+   the re-detect count; then, untimed, the same sequence with no blank
+   frame and with frame 30 blank instead, for the ATE of each;
+4. plain path: the first 5 steps through the plain versions, each from the
+   kernel path's state with the same RANSAC draws, beside the pose's own
+   response to a 1e-4 px jitter of the tracked points; then 5 free-running
+   steps of each path. Rotation, translation direction and step length
+   are held per step.
+
+Output: the card's name and power limit first, a JSON line of per-kernel
+results second to last, and {"ok": true, "device": {...}} last.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from unittest import mock
+
+import numpy as np
+
+SHAPE = (376, 1241)  # KITTI odometry frames
+N_FRAMES = 60
+# A textureless frame. The step INTO it keeps most LK tracks (templates
+# are solvable, and on flat gray the solve converges in place), so that
+# pose is garbage; the next step finds no texture, the survivors fall to 0
+# and the step after re-detects, as in vo_tpu (tests/test_torch_pipeline.py
+# holds the two together step by step through such a frame). ATE is not
+# aligned, so the garbage step's error counts for every later frame: the
+# pipeline phase logs the ATE with no blank frame and with frame 30 blank
+# beside the checked run's.
+BLANK = 45
+BLANK_ALT = 30
+H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
+H100_F32_FLOPS = 67e12  # f32 outside the tensor cores, H100 SXM data sheet
+EPS32 = float(np.finfo(np.float32).eps)
+
+
+def _log(msg: str) -> None:
+    print(f"[chip_smoke] {msg}", flush=True)
+
+
+def _time_ms(fn, reps: int) -> float:
+    """Mean device time of fn() over reps back-to-back runs, by CUDA
+    events. The device first spins for ~10 ms, so the host queues the runs
+    ahead of it and the events time the device's work, not the host's
+    launch rate (where queueing takes longer than that, as for the plain
+    versions' thousands of small launches, they time both)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)  # clock cycles
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _device_split(fn, kernel: str, reps: int = 10) -> str:
+    """Device time per call of fn(), by torch.profiler: the named kernel's
+    and the rest's (the wrapper's small tensor ops)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not ev:
+        return "not measured (the profiler saw no device time)"
+    k = sum(e.device_time for e in ev if kernel in e.name) / reps / 1e3
+    rest = sum(e.device_time for e in ev if kernel not in e.name) / reps / 1e3
+    return f"{kernel} {k:.4f} ms, other kernels {rest:.4f} ms"
+
+
+def _bound_ms(n_bytes: float, n_flops: float) -> tuple[float, str]:
+    t_mem = n_bytes / H100_BYTES_PER_S * 1e3
+    t_ops = n_flops / H100_F32_FLOPS * 1e3
+    return (t_mem, "bytes") if t_mem >= t_ops else (t_ops, "operations")
+
+
+class _Staged:
+    """A synthetic sequence whose frames are already on the card."""
+
+    def __init__(self, seq, device, frames=None):
+        import torch
+
+        self.poses = seq.poses
+        self.K = seq.K
+        self.frames = frames or [torch.from_numpy(seq.frame(i)).to(device)
+                                 for i in range(len(seq))]
+
+    def with_frame(self, i, img):
+        """The same sequence with frame i replaced."""
+        frames = list(self.frames)
+        frames[i] = img
+        return _Staged(self, None, frames)
+
+    def __len__(self):
+        return len(self.frames)
+
+    def frame(self, i):
+        return self.frames[i]
+
+
+def _capture(module, name):
+    """Patch module.name with a pass-through that records its arguments."""
+    calls = []
+    real = getattr(module, name)
+
+    def spy(*args):
+        calls.append(args)
+        return real(*args)
+
+    return mock.patch.object(module, name, spy), calls
+
+
+# B1 against its plain version. Both compute in f32 but sum the 21x21
+# patch in different orders (and the kernel contracts to FMA), so the
+# comparison separates what rounding may move from what it may not, with
+# an f64 run of the plain version (same working-type windows) as witness:
+# - solvable counts only where `pre` holds (elsewhere the caller discards
+#   it: the point is already lost, or its template is outside its window).
+#   It compares min_eig = (tr - sqrt(tr^2 - 4 det)) / 2 with a threshold,
+#   as vo_tpu does, and f32 rounding decides it in two bands: where the
+#   f64 min_eig lies within npx * eps32 * tr of the threshold (a sum of
+#   npx terms), and where G is nearly isotropic, (gxx - gyy)^2 + 4 gxy^2
+#   <= 16 eps32 tr^2: there tr^2 - 4 det may round below zero, the square
+#   root is NaN and the point is unsolvable. A flag may differ only inside
+#   these bands;
+# - endpoints: a point is rounding-sensitive where the f32 plain version
+#   itself strays from f64 by over 1e-4 px (near-singular G: Gauss-Newton
+#   amplifies rounding into another iteration path). Elsewhere the kernel
+#   must agree to 1e-3 px, or to 2 eps (one convergence step) where its
+#   iteration count differs, with p99 < 1e-4 px. The sensitive share, and
+#   the share over 1e-3 px, are each bounded: on the main path's ORB
+#   points by 0.5 % (readings <= 0.04 %). Random points, weak texture
+#   included, reach a few %, and an unmarked point may reach 1e-3 px (one
+#   f32 run can land near f64 by chance): tests/test_torch_cuda.py holds
+#   them to wider limits.
+LK_TOLERANCE = ("solvable (where pre) flips only inside the rounding "
+                "bands, band share < 2 %; off the sensitive points |dv| < "
+                "1e-3 px (same iterations) or < 2 eps (not) and p99 < 1e-4 "
+                "px; sensitive share and share over 1e-3 px < 0.5 %")
+
+
+def lk_stats(args, out, ref) -> dict:
+    """Agreement of one level's kernel and plain results, with the f64
+    plain run as witness of the rounding-sensitive points."""
+    import torch
+
+    from vo_tpu_torch.ops import lk_cuda
+
+    img1, img2, q1, q20, flow, pre, org1, org2, S, config = args
+    v, solv, its = out
+    rv, rsolv, rits = ref
+    dv, _, _ = lk_cuda.refine_level_reference(*args, dtype=torch.float64)
+    npx = config.win * config.win
+    w1 = lk_cuda.crop_windows(img1, org1[:, 0], org1[:, 1], S,
+                              config.precision, torch.float64)
+    _, _, _, (gxx, gxy, gyy) = lk_cuda.structure_tensor(w1, q1.double(),
+                                                        config.win)
+    tr = gxx + gyy
+    disc2 = (gxx - gyy) ** 2 + 4 * gxy * gxy
+    lmin, lmax = (tr - disc2.sqrt()) / 2, (tr + disc2.sqrt()) / 2
+    margin = (lmin - config.min_eig_threshold * npx).abs() / (EPS32 * tr)
+    isotropy = disc2 / (EPS32 * tr * tr)
+    band = (margin <= npx) | (isotropy <= 16)
+    flips = pre & (solv != rsolv)
+    idle = ~pre & (solv != rsolv)
+
+    both = pre & solv & rsolv
+    d = (v - rv).abs().amax(dim=1).double()
+    sensitive = both & ((rv.double() - dv).abs().amax(dim=1) > 1e-4)
+    rest = both & ~sensitive
+    same = rest & (its == rits)
+    cond = lmax / lmin.clamp_min(1e-30)
+    tail = both & (d > 1e-3)
+    dr = d[rest]
+    n = max(int(both.sum()), 1)
+
+    def mx(m):
+        return d[m].max().item() if bool(m.any()) else 0.0
+
+    def med(x, m):
+        return x[m].median().item() if bool(m.any()) else float("nan")
+
+    return {
+        "agree": 1.0 - flips.double().sum().item() / max(int(pre.sum()), 1),
+        "flips": int(flips.sum()),
+        "flips_where_discarded": int(idle.sum()),
+        "flips_outside_band": int((flips & ~band).sum()),
+        "flips_min_eig_band": int((flips & (margin <= npx)).sum()),
+        "flips_isotropic_band": int((flips & (isotropy <= 16)).sum()),
+        "max_flip_isotropy": isotropy[flips].max().item()
+        if bool(flips.any()) else 0.0,
+        "band_share": band[pre].double().mean().item()
+        if bool(pre.any()) else 0.0,
+        "isotropic_share": (isotropy <= 16)[pre].double().mean().item()
+        if bool(pre.any()) else 0.0,
+        "points": int(both.sum()),
+        "p50": dr.quantile(0.5).item() if dr.numel() else 0.0,
+        "p99": dr.quantile(0.99).item() if dr.numel() else 0.0,
+        "max": mx(both),
+        "max_rest_same_iters": mx(same),
+        "max_rest_other_iters": mx(rest & ~same),
+        "iters_differ": int((both & (its != rits)).sum()),
+        "sensitive_share": int(sensitive.sum()) / n,
+        "over_1e-3": int(tail.sum()) / n,
+        "tail_in_sensitive": int((tail & sensitive).sum()),
+        "cond_median_all": med(cond, both),
+        "cond_median_tail": med(cond, tail),
+        "plain_vs_f64_max": (rv.double() - dv).abs().amax(dim=1)[both].max()
+        .item() if bool(both.any()) else 0.0,
+    }
+
+
+def lk_within(st: dict, eps: float, max_share: float = 0.005,
+              max_band: float = 0.02, max_rest: float = 1e-3) -> bool:
+    return (st["flips_outside_band"] == 0 and st["band_share"] < max_band
+            and st["max_rest_same_iters"] < max_rest
+            and st["max_rest_other_iters"] < 2 * eps and st["p99"] < 1e-4
+            and st["sensitive_share"] < max_share
+            and st["over_1e-3"] < max_share)
+
+
+def lk_flops(win: int, n_points: int, n_iters: int) -> float:
+    """Operations the LK level needs: per point, (win+2)^2 bilinear samples
+    (7 flops each: 4 products and 3 sums, the 4 weights shared by the
+    patch), then per template pixel 2 differences, 2 halvings and the 3
+    products and 3 sums of G; per iteration and pixel one sample, the
+    residual, and 2 products and 2 sums for b."""
+    wp = win + 2
+    return (n_points * (7 * wp * wp + 10 * win * win)
+            + n_iters * 12 * win * win)
+
+
+def check_lk(seqs, device) -> dict:
+    """B1 against its plain version at both precisions on every level, on
+    the main path's inputs (and at 240x320); times the KITTI-shape bf16
+    levels."""
+    import torch
+
+    from vo_tpu_torch.models.vo import TrackingVO
+    from vo_tpu_torch.ops import lk_cuda
+    from vo_tpu_torch.ops.lk import LKConfig
+    from vo_tpu_torch.runtime.presets import get_preset
+
+    base = get_preset("tracking_orb").config
+    worst, ms, plain_ms, n_bytes, n_flops = 0.0, 0.0, 0.0, 0.0, 0.0
+    failed, timed = [], []
+    for seq_name, seq in seqs:
+        for precision in ("bf16", "f32"):
+            cfg = base._replace(lk=LKConfig(precision=precision))
+            vo = TrackingVO(seq.K, cfg, device=device)
+            patch, calls = _capture(lk_cuda, "refine_level")
+            with patch:
+                vo.step(vo.init(seq.frame(0)), seq.frame(1))
+            torch.cuda.synchronize()
+            if len(calls) != 4:
+                raise RuntimeError(
+                    f"expected 4 LK levels, captured {len(calls)}")
+            for level, args in zip((3, 2, 1, 0), calls):
+                out = lk_cuda.refine_level(*args)
+                ref = lk_cuda.refine_level_reference(*args)
+                torch.cuda.synchronize()
+                pre, its = args[5], out[2]
+                st = lk_stats(args, out, ref)
+                _log(f"B1 {seq_name} {precision} level {level}: "
+                     f"N={int(pre.shape[0])} S={args[8]} {st}, mean iters "
+                     f"{its.float().mean().item():.2f} (plain "
+                     f"{ref[2].float().mean().item():.2f}); tolerance: "
+                     f"{LK_TOLERANCE}")
+                if not lk_within(st, cfg.lk.eps):
+                    failed.append(f"{seq_name} {precision} level {level}")
+                worst = max(worst, st["max"])
+                if seq_name == "kitti" and precision == "bf16":
+                    timed.append(args)
+                    ms += _time_ms(lambda: lk_cuda.refine_level(*args), 20)
+                    plain_ms += _time_ms(
+                        lambda: lk_cuda.refine_level_reference(*args), 3)
+                    img1, img2 = args[0], args[1]
+                    n_bytes += (img1.numel() * img1.element_size()
+                                + img2.numel() * img2.element_size()
+                                + pre.numel() * (6 * 4 + 1 + 4 * 4 + 8 + 1
+                                                 + 4))
+                    n_flops += lk_flops(cfg.lk.win, int(pre.sum()),
+                                        int(its.sum()))
+    if failed:
+        raise RuntimeError(f"B1 disagrees with its plain version: {failed}")
+    bound, by = _bound_ms(n_bytes, n_flops)
+    _log(f"B1 timing (bf16, 4 levels of one step): kernel {ms:.4f} ms, "
+         f"plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({by}; "
+         f"{n_flops:.4g} flops, {n_bytes:.4g} bytes)")
+    split = _device_split(
+        lambda: [lk_cuda.refine_level(*a) for a in timed], "lk_refine_kernel")
+    _log(f"B1 device time by profiler (4 levels of one step): {split}")
+    return {
+        "name": "lk_refine", "route": "cuda",
+        "source": "vo_tpu_torch/csrc/lk_refine.cu",
+        "replaces": "vo_tpu/ops/lk_pallas.py:157",
+        "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound, "bound_by": by, "library_ms": None,
+    }
+
+
+def check_blur(seq, device) -> dict:
+    """B2 against its plain version on the Harris canvas and edge cases."""
+    import torch
+    import torch.nn.functional as F
+
+    from vo_tpu_torch.ops import blur_cuda
+    from vo_tpu_torch.ops.conv import gaussian_kernel_1d
+    from vo_tpu_torch.runtime.presets import get_preset
+
+    vo = get_preset("tracking_orb").build(seq.K, device=device)
+    patch, calls = _capture(blur_cuda, "separable_blur")
+    with patch:
+        vo.detect(seq.frame(0))
+    torch.cuda.synchronize()
+    if len(calls) != 1:
+        raise RuntimeError(f"expected 1 blur per detect, got {len(calls)}")
+    img, ky, kx = calls[0]
+    _log(f"B2 main-path input {tuple(img.shape)} {img.dtype}, "
+         f"{len(ky)}x{len(kx)} taps")
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+
+    def rand(shape):
+        return torch.rand(shape, generator=gen, device=device) * 255.0
+
+    cases = [
+        ("harris canvas", img, ky, kx, 1e-5 * img.abs().max().item()),
+        ("odd shape", rand((2, 377, 1243)), ky, kx, 2e-3),
+        ("asymmetric taps", rand((1, 240, 320)), gaussian_kernel_1d(5, 1.0),
+         gaussian_kernel_1d(9, 2.0), 2e-3),
+        ("radius 64", rand((1, 200, 300)), gaussian_kernel_1d(129, 20.0),
+         gaussian_kernel_1d(129, 20.0), 5e-3),
+    ]
+    worst = 0.0
+    for name, x, cy, cx, tol in cases:
+        out = blur_cuda.separable_blur(x, cy, cx)
+        ref = blur_cuda.separable_blur_reference(x, cy, cx)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        _log(f"B2 {name} {tuple(x.shape)}: max |err| {err:.3e}, "
+             f"tolerance {tol:.3e}")
+        if not err <= tol:
+            raise RuntimeError(f"B2 {name} disagrees")
+        if name == "harris canvas":
+            worst = err
+
+    ms = _time_ms(lambda: blur_cuda.separable_blur(img, ky, kx), 50)
+    plain_ms = _time_ms(
+        lambda: blur_cuda.separable_blur_reference(img, ky, kx), 10)
+    wy = torch.tensor(np.asarray(ky, np.float32), device=device)
+    wx = torch.tensor(np.asarray(kx, np.float32), device=device)
+    ry, rx = len(ky) // 2, len(kx) // 2
+    B, H, W = img.shape
+    x4 = img.reshape(B, 1, H, W)
+
+    def library():  # cuDNN, TF32 off (vo_tpu_torch sets it at import)
+        t = F.conv2d(F.pad(x4, (rx, rx, 0, 0), mode="reflect"),
+                     wx.reshape(1, 1, 1, -1))
+        return F.conv2d(F.pad(t, (0, 0, ry, ry), mode="reflect"),
+                        wy.reshape(1, 1, -1, 1))
+
+    lib_err = (library().reshape(img.shape)
+               - blur_cuda.separable_blur(img, ky, kx)).abs().max().item()
+    library_ms = _time_ms(library, 50)
+    _log(f"B2 timing: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+         f"F.conv2d x2 {library_ms:.4f} ms (max |diff| {lib_err:.3e})")
+    n_bytes = 2 * img.numel() * 4
+    n_flops = img.numel() * 2 * (len(ky) + len(kx))
+    bound, by = _bound_ms(n_bytes, n_flops)
+    _log(f"B2 bound {bound:.4f} ms ({by})")
+    return {
+        "name": "separable_blur", "route": "cuda",
+        "source": "vo_tpu_torch/csrc/separable_blur.cu",
+        "replaces": "vo_tpu/ops/pallas_blur.py:59",
+        "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound, "bound_by": by, "library_ms": library_ms,
+    }
+
+
+def _ate_share(preset, seq) -> tuple:
+    """(ATE / path length, est, gt, stats) of one run of the preset."""
+    from vo_tpu_torch.utils.metrics import compute_ate
+
+    est, gt, _, stats = preset.run(seq, preset.build(seq.K))
+    ate, _ = compute_ate(gt, est)
+    path = float(np.linalg.norm(np.diff(gt, axis=0), axis=1).sum())
+    return ate / path, est, gt, stats
+
+
+def run_pipeline(seq, variants, device) -> dict:
+    """tracking_orb end to end; returns the launch counts of the run."""
+    import torch
+
+    from vo_tpu_torch.ops import blur_cuda, lk_cuda
+    from vo_tpu_torch.runtime.presets import get_preset
+    from vo_tpu_torch.utils.metrics import compute_ate, compute_rpe
+
+    preset = get_preset("tracking_orb")
+    warm = preset.build(seq.K)  # default device: cuda
+    state = warm.init(seq.frame(0))
+    for i in range(1, 4):
+        state, _ = warm.step(state, seq.frame(i))
+    torch.cuda.synchronize()
+
+    vo = preset.build(seq.K)
+    lk_cuda.launches = 0
+    blur_cuda.launches = 0
+    t0 = time.perf_counter()
+    est, gt, _, stats = preset.run(seq, vo)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = {"lk_refine": lk_cuda.launches,
+              "separable_blur": blur_cuda.launches}
+
+    n_steps = len(seq) - 1
+    ate, _ = compute_ate(gt, est)
+    rpe, _ = compute_rpe(gt, est)
+    path = float(np.linalg.norm(np.diff(gt, axis=0), axis=1).sum())
+    redetects = [i for i, s in enumerate(stats) if s.get("fallback")]
+    _log(f"pipeline tracking_orb {SHAPE[0]}x{SHAPE[1]}, {len(seq)} frames, "
+         f"frame {BLANK} blank: {n_steps / dt:.2f} fps (host clock over "
+         f"init + {n_steps} steps, closed by synchronize), ATE {ate:.3f} on "
+         f"a {path:.2f} path ({100 * ate / path:.2f} %), RPE {rpe:.4f}, "
+         f"re-detects at steps {redetects}, launches {counts}, median "
+         f"n_assoc {int(np.median([s['n_assoc'] for s in stats[1:]]))}")
+    if not np.isfinite(est).all():
+        raise RuntimeError("non-finite trajectory")
+    if not redetects:
+        raise RuntimeError("the textureless frame forced no re-detect")
+    if ate >= 0.10 * path:
+        raise RuntimeError(f"ATE {ate:.3f} >= 10 % of path {path:.3f}")
+    if min(counts.values()) <= 0:
+        raise RuntimeError(f"a kernel was not launched: {counts}")
+
+    # where the blank frame sits (not timed, not checked)
+    for name, variant in variants:
+        share, v_est, v_gt, v_stats = _ate_share(preset, variant)
+        ratio = [round(float(np.linalg.norm(v_est[i] - v_est[i - 1])
+                             / np.linalg.norm(v_gt[i] - v_gt[i - 1])), 3)
+                 for i in range(1, len(v_est))]
+        _log(f"pipeline variant {name}: ATE {100 * share:.2f} % of path, "
+             f"re-detects at steps "
+             f"{[i for i, s in enumerate(v_stats) if s.get('fallback')]}, "
+             f"est/gt step length {ratio}")
+    return counts
+
+
+def _rel(P0: np.ndarray, P1: np.ndarray) -> np.ndarray:
+    return np.linalg.inv(P0.astype(np.float64)) @ P1.astype(np.float64)
+
+
+def _pose_gap(A: np.ndarray, B: np.ndarray) -> dict:
+    """Rotation angle, translation-direction angle (deg), length ratio
+    B/A and max |A - B| of two step transforms (angles in forms that
+    stay accurate when small)."""
+    dR = A[:3, :3].T @ B[:3, :3] - np.eye(3)
+    rot = 2.0 * np.arcsin(min(np.linalg.norm(dR) / (2.0 * np.sqrt(2.0)),
+                              1.0))
+    ta, tb = A[:3, 3], B[:3, 3]
+    na, nb = np.linalg.norm(ta), np.linalg.norm(tb)
+    sin_t = np.linalg.norm(np.cross(ta, tb))
+    return {"rot": float(np.degrees(rot)),
+            "dir": float(np.degrees(np.arctan2(sin_t, ta @ tb))),
+            "len": float(nb / max(na, 1e-30)),
+            "max": float(np.abs(A - B).max())}
+
+
+# Kernel path against plain path, per step. On these frames the pose
+# moves by up to 0.1 deg of rotation, 3.5 deg of translation direction and
+# 8 % of step length when the tracked points move by 1e-4 px (the jitter
+# witness below; measured on an H100), well above the two paths' point
+# differences (~1e-6 px, rare tails of ~5e-3 px): the winner of 256
+# RANSAC hypotheses and the scale, the upper median of ~2,800 distance
+# ratios of a cloud whose far points have sub-pixel parallax, both move
+# with them. The limits sit above the witness, and the kernel path's
+# steps are also held against the ground truth.
+POSE_TOLERANCE = {"rot": 0.25, "dir": 5.0, "len": 0.15}
+GT_TOLERANCE = {"rot": 0.25, "dir": 5.0}
+
+
+def compare_plain_path(seq, device) -> None:
+    """The first 5 steps through the plain versions, on the card: each
+    step from the kernel path's state with the same RANSAC draws, beside
+    the pose's response to a 1e-4 px jitter of its tracked points; then
+    5 free-running steps of each path."""
+    import torch
+
+    from vo_tpu_torch.models import vo as vo_module
+    from vo_tpu_torch.ops import blur_cuda, lk_cuda
+    from vo_tpu_torch.runtime.presets import get_preset
+
+    preset = get_preset("tracking_orb")
+    plain = mock.patch.object(lk_cuda, "refine_level",
+                              lk_cuda.refine_level_reference), \
+        mock.patch.object(blur_cuda, "separable_blur",
+                          blur_cuda.separable_blur_reference)
+
+    def step_from(vo, state, gen_state, i, pts=None):
+        gen = torch.Generator(device=device)
+        gen.set_state(gen_state)
+        state = state._replace(gen=gen)
+        if pts is not None:
+            state = state._replace(pts=pts)
+        _, out = vo.step(state, seq.frame(i))
+        return out.pose.cpu().numpy()
+
+    def within(gap, limits):
+        return all((abs(gap[k] - 1.0) if k == "len" else gap[k]) < v
+                   for k, v in limits.items())
+
+    kvo, pvo, jvo = (preset.build(seq.K, device=device) for _ in range(3))
+    jitter_gen = torch.Generator(device=device)
+    jitter_gen.manual_seed(1)
+    state = kvo.init(seq.frame(0))
+    failed = []
+    for i in range(1, 6):
+        P0 = state.pose.cpu().numpy()
+        gen_state = state.gen.get_state()
+        spy, scale_calls = _capture(vo_module, "relative_scale_matched")
+        with spy:
+            nxt, out = kvo.step(state, seq.frame(i))
+            Pk = out.pose.cpu().numpy()
+            noise = torch.randn(state.pts.shape, generator=jitter_gen,
+                                device=device) * 1e-4
+            with plain[0], plain[1]:
+                Pp = step_from(pvo, state, gen_state, i)
+                Pj = step_from(jvo, state, gen_state, i, state.pts + noise)
+        (_, Xk, vk), (_, Xp, vp) = scale_calls[0], scale_calls[1]
+        common = vk & vp
+        dX = ((Xk - Xp).norm(dim=1) / Xp.norm(dim=1))[common]
+        if not bool(common.any()):  # the first step has no earlier cloud
+            dX = torch.zeros(1, device=device)
+        g = _rel(seq.poses[i - 1], seq.poses[i])
+        kp = _pose_gap(_rel(P0, Pk), _rel(P0, Pp))
+        jit = _pose_gap(_rel(P0, Pp), _rel(P0, Pj))
+        gk = _pose_gap(g, _rel(P0, Pk))
+        _log(f"step {i} from one state: kernel vs plain {kp}; plain vs "
+             f"plain with 1e-4 px jitter {jit}; kernel vs ground truth "
+             f"{gk}; scale cloud: {int(vk.sum())} vs {int(vp.sum())} "
+             f"valid, {int((vk != vp).sum())} differ, relative |dX| median "
+             f"{dX.median().item():.2e} max {dX.max().item():.2e}; "
+             f"tolerance: {POSE_TOLERANCE}, against ground truth "
+             f"{GT_TOLERANCE}")
+        if not (within(kp, POSE_TOLERANCE) and within(gk, GT_TOLERANCE)):
+            failed.append(f"step {i}")
+        state = nxt
+    torch.cuda.synchronize()
+
+    def free_run():
+        vo = preset.build(seq.K, device=device)
+        st = vo.init(seq.frame(0))
+        outs = []
+        for i in range(1, 6):
+            st, o = vo.step(st, seq.frame(i))
+            outs.append((o.pose.cpu().numpy(), int(o.n_assoc), st.pts,
+                         st.pts_valid))
+        return outs
+
+    kern = free_run()
+    with plain[0], plain[1]:
+        plain_run = free_run()
+    Pk0 = Pp0 = np.eye(4)
+    for i, ((Pk, nk, pk, vk), (Pp, np_, pp, vp)) in enumerate(
+            zip(kern, plain_run), 1):
+        both = vk & vp
+        dpts = (pk - pp).abs().amax(dim=1)[both].max().item()
+        st = _pose_gap(_rel(Pk0, Pk), _rel(Pp0, Pp))
+        _log(f"free-running step {i}: pose max |diff| "
+             f"{np.abs(Pk - Pp).max():.3e}, step {st}, n_assoc {nk} vs "
+             f"{np_}, points |diff| max {dpts:.3e} px; tolerance: n_assoc "
+             f"equal, points < 1e-2 px, step {POSE_TOLERANCE}")
+        if nk != np_ or dpts >= 1e-2 or not within(st, POSE_TOLERANCE):
+            failed.append(f"free-running step {i}")
+        Pk0, Pp0 = Pk, Pp
+    if failed:
+        raise RuntimeError(f"kernel and plain paths disagree: {failed}")
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: PyTorch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "False)", file=sys.stderr)
+        return 2
+    try:
+        from vo_tpu_torch import _build
+        from vo_tpu_torch.data.synthetic import SyntheticSequence
+    except ImportError as e:
+        print(f"chip_smoke: run from the repository root ({e})",
+              file=sys.stderr)
+        return 2
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    print(smi.stdout.strip().splitlines()[0], flush=True)
+    device = torch.device("cuda")
+    _log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+         f"{torch.cuda.get_device_name(0)}")
+
+    t0 = time.perf_counter()
+    logs = _build.build(["lk_refine", "separable_blur"])
+    _log(f"built {sorted(logs)} in {time.perf_counter() - t0:.1f} s")
+    for name, out in logs.items():
+        for line in out.splitlines():
+            if "registers" in line or "spill" in line:
+                _log(f"  {name}: {line.strip()}")
+
+    t0 = time.perf_counter()
+    base = SyntheticSequence.generate(
+        n_frames=N_FRAMES, shape=SHAPE, n_points=4000, yaw_amplitude=0.3,
+        n_turns=2.0,
+    )
+    clean = _Staged(base, device)
+    # a frame with no landmarks: the renderer's flat background
+    blank = torch.full(SHAPE, 128.0, device=device)
+    seq = clean.with_frame(BLANK, blank)
+    variants = [("no blank frame", clean),
+                (f"frame {BLANK_ALT} blank",
+                 clean.with_frame(BLANK_ALT, blank))]
+    small = _Staged(SyntheticSequence.generate(n_frames=2, shape=(240, 320)),
+                    device)
+    _log(f"rendered {len(seq)} frames in {time.perf_counter() - t0:.1f} s")
+
+    kernels = [check_lk([("kitti", seq), ("240x320", small)], device),
+               check_blur(seq, device)]
+    counts = run_pipeline(seq, variants, device)
+    compare_plain_path(seq, device)
+
+    for k in kernels:
+        k["launches"] = counts[k["name"]]
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,112 @@
+"""Card-only tests of the port: each CUDA kernel against its plain version
+on the card, and the tracking pipeline through the kernels.
+
+They need a CUDA device and skip without one. On a machine with a card
+(which need not have jax) run them without the suite's conftest:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from chip_smoke import lk_stats, lk_within
+from vo_tpu_torch.data.synthetic import SyntheticSequence
+from vo_tpu_torch.ops import blur_cuda, lk_cuda
+from vo_tpu_torch.ops import lk as tlk
+from vo_tpu_torch.ops.conv import gaussian_kernel_1d
+from vo_tpu_torch.runtime.presets import get_preset
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("precision", ["bf16", "f32"])
+def test_lk_kernel_matches_plain(cuda, precision):
+    seq = SyntheticSequence.generate(n_frames=2, shape=(240, 320), seed=3)
+    cfg = tlk.LKConfig(precision=precision)
+    pyr1 = tlk.lk_build_pyramid(torch.from_numpy(seq.frame(0)).to(cuda), cfg)
+    pyr2 = tlk.lk_build_pyramid(torch.from_numpy(seq.frame(1)).to(cuda), cfg)
+    rng = np.random.default_rng(0)
+    pts = torch.tensor(np.stack([rng.uniform(5, 315, 700),
+                                 rng.uniform(5, 235, 700)], 1),
+                       dtype=torch.float32, device=cuda)
+    calls = []
+    real = lk_cuda.refine_level
+
+    def spy(*args):
+        calls.append(args)
+        return real(*args)
+
+    lk_cuda.refine_level = spy
+    try:
+        before = lk_cuda.launches
+        tlk.lk_pyramid_track(pyr1, pyr2, pts, torch.ones(700, dtype=torch.bool,
+                                                         device=cuda), cfg)
+    finally:
+        lk_cuda.refine_level = real
+    assert lk_cuda.launches - before == len(calls) == 4
+    for args in calls:
+        out = real(*args)
+        ref = lk_cuda.refine_level_reference(*args)
+        torch.cuda.synchronize()
+        # f32 sums in another order (and FMA contraction) on the card,
+        # with an f64 run as witness of the rounding-sensitive points: the
+        # bounds of chip_smoke.py, except that random points, weak texture
+        # included, reach more of them (readings on an H100: sensitive
+        # share <= 2.3 %, band share <= 2.1 %, one unmarked point 1.0e-3
+        # px off at a level whose tail has median condition 91), so
+        # shares up to 5 % and 1e-2 px there; flag agreement >= 99 % too
+        st = lk_stats(args, out, ref)
+        print(precision, st)
+        assert lk_within(st, cfg.eps, max_share=0.05, max_band=0.05,
+                         max_rest=1e-2), str(st)
+        assert st["agree"] >= 0.99, str(st)
+
+
+@pytest.mark.parametrize(
+    "shape,ky,kx,atol",
+    [
+        ((3, 181, 333), 7, 7, 2e-3),
+        ((1, 37, 51), 5, 9, 2e-3),
+        ((2, 200, 300), 129, 3, 5e-3),
+    ],
+)
+def test_blur_kernel_matches_plain(cuda, shape, ky, kx, atol):
+    g = torch.Generator(device=cuda)
+    g.manual_seed(1)
+    x = torch.rand(shape, generator=g, device=cuda) * 255.0
+    ty = gaussian_kernel_1d(ky, ky / 6.0)
+    tx = gaussian_kernel_1d(kx, kx / 6.0)
+    before = blur_cuda.launches
+    out = blur_cuda.separable_blur(x, ty, tx)
+    torch.cuda.synchronize()
+    assert blur_cuda.launches == before + 1
+    ref = blur_cuda.separable_blur_reference(x, ty, tx)
+    assert (out - ref).abs().max().item() <= atol
+
+
+def test_blur_kernel_rejects_float64(cuda):
+    with pytest.raises(TypeError):
+        blur_cuda.separable_blur(torch.zeros(20, 20, dtype=torch.float64,
+                                             device=cuda), [1.0], [1.0])
+
+
+def test_pipeline_runs_through_the_kernels(cuda):
+    seq = SyntheticSequence.generate(n_frames=10, shape=(240, 320),
+                                     dropouts=((5, 6),), dropout_keep=0.0)
+    preset = get_preset("tracking_orb")
+    vo = preset.build(seq.K)
+    assert vo.device.type == "cuda"
+    lk0, blur0 = lk_cuda.launches, blur_cuda.launches
+    est, gt, _, stats = preset.run(seq, vo)
+    assert lk_cuda.launches > lk0 and blur_cuda.launches > blur0
+    assert np.isfinite(est).all()
+    assert any(s["fallback"] for s in stats[1:])
