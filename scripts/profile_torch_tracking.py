@@ -1,14 +1,17 @@
 """Profile the PyTorch/CUDA port's tracking step on one CUDA card.
 
-    python3 scripts/profile_torch_tracking.py [--steps 10] [--trace PATH]
+    python3 scripts/profile_torch_tracking.py [--preset tracking_orb]
+        [--steps 10] [--detect] [--trace PATH]
 
-Builds the tracking_orb preset of vo_tpu_torch at KITTI shape (376x1241) on
-a synthetic sequence staged on the card, runs warm-up steps, then profiles
-`--steps` tracking steps with torch.profiler. Prints one JSON line with the
-wall time per step (host clock, closed by synchronize), the device-busy
-share (summed CUDA kernel time over the profiled wall time), CUDA kernel
-launches per step, and the top operators by self CPU time and by self
-device time. `--trace` also writes a Chrome trace.
+Builds the preset of vo_tpu_torch (tracking_orb or tracking_sift) at KITTI
+shape (376x1241) on a synthetic sequence staged on the card, runs warm-up
+steps, then profiles `--steps` tracking steps with torch.profiler (with
+`--detect`, that many calls of the preset's detector, the work of a
+re-detect step). Prints one JSON line with the wall time per step (host
+clock, closed by synchronize), the device-busy share (summed CUDA kernel
+time over the profiled wall time), CUDA kernel launches per step, and the
+top operators by self CPU time and by self device time. `--trace` also
+writes a Chrome trace.
 """
 
 from __future__ import annotations
@@ -24,7 +27,10 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 def main() -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--preset", default="tracking_orb",
+                    choices=["tracking_orb", "tracking_sift"])
     ap.add_argument("--steps", type=int, default=10)
+    ap.add_argument("--detect", action="store_true")
     ap.add_argument("--trace", default=None)
     args = ap.parse_args()
 
@@ -42,7 +48,7 @@ def main() -> int:
                                      n_points=4000, yaw_amplitude=0.3,
                                      n_turns=2.0)
     frames = [torch.from_numpy(seq.frame(i)).cuda() for i in range(n + 1)]
-    vo = get_preset("tracking_orb").build(seq.K)
+    vo = get_preset(args.preset).build(seq.K)
     state = vo.init(frames[0])
     for i in range(1, 5):
         state, _ = vo.step(state, frames[i])
@@ -51,7 +57,10 @@ def main() -> int:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for i in range(5, n + 1):
-            state, out = vo.step(state, frames[i])
+            if args.detect:
+                vo.detect(frames[i])
+            else:
+                state, out = vo.step(state, frames[i])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     steps = n - 4
@@ -67,6 +76,8 @@ def main() -> int:
 
     print(json.dumps({
         "device": torch.cuda.get_device_name(0),
+        "preset": args.preset,
+        "profiled": "detect" if args.detect else "tracking step",
         "steps": steps,
         "ms_per_step": 1e3 * wall / steps,
         "device_busy_share": busy_us * 1e-6 / wall,

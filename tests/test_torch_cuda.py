@@ -1,5 +1,5 @@
 """Card-only tests of the port: each CUDA kernel against its plain version
-on the card, and the tracking pipeline through the kernels.
+on the card, and the tracking pipelines through the kernels.
 
 They need a CUDA device and skip without one. On a machine with a card
 (which need not have jax) run them without the suite's conftest:
@@ -13,7 +13,7 @@ import torch
 
 from chip_smoke import lk_stats, lk_within
 from vo_tpu_torch.data.synthetic import SyntheticSequence
-from vo_tpu_torch.ops import blur_cuda, lk_cuda
+from vo_tpu_torch.ops import blur_cuda, crop_cuda, lk_cuda, rowconv_cuda
 from vo_tpu_torch.ops import lk as tlk
 from vo_tpu_torch.ops.conv import gaussian_kernel_1d
 from vo_tpu_torch.runtime.presets import get_preset
@@ -108,5 +108,65 @@ def test_pipeline_runs_through_the_kernels(cuda):
     lk0, blur0 = lk_cuda.launches, blur_cuda.launches
     est, gt, _, stats = preset.run(seq, vo)
     assert lk_cuda.launches > lk0 and blur_cuda.launches > blur0
+    assert np.isfinite(est).all()
+    assert any(s["fallback"] for s in stats[1:])
+
+
+@pytest.mark.parametrize("S", [8, 37, 40, 79, 128])
+def test_crop_kernel_matches_plain(cuda, S):
+    """Bit for bit, any S up to 128, windows past every edge included."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(2)
+    img = torch.rand((300, 500), generator=g, device=cuda) * 255.0
+    ox = torch.randint(-S, 500, (1000,), generator=g, device=cuda)
+    oy = torch.randint(-S, 300, (1000,), generator=g, device=cuda)
+    before = crop_cuda.launches
+    out = crop_cuda.crop_windows(img, ox, oy, S)
+    torch.cuda.synchronize()
+    assert crop_cuda.launches == before + 1
+    assert torch.equal(out, crop_cuda.crop_windows_reference(img, ox, oy, S))
+
+
+@pytest.mark.parametrize(
+    "shape,k",
+    [((3, 181, 333), 3), ((7056, 640), 3), ((6, 20), 25), ((1, 5), 129)],
+)
+def test_rowconv_kernel_matches_plain(cuda, shape, k):
+    """Both axes; the kernel sums in the plain version's order (bit for
+    bit), periodic reflect-101 where the radius passes the axis."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(3)
+    x = torch.rand(shape, generator=g, device=cuda) * 255.0
+    taps = (-0.5, 0.0, 0.5) if k == 3 else gaussian_kernel_1d(k, k / 6.0)
+    for along_cols in (False, True):
+        before = rowconv_cuda.launches
+        fn = rowconv_cuda.conv_cols if along_cols else rowconv_cuda.conv_rows
+        out = fn(x, taps)
+        torch.cuda.synchronize()
+        assert rowconv_cuda.launches == before + 1
+        ref = rowconv_cuda.conv_reference(x, taps, along_cols)
+        assert (out - ref).abs().max().item() <= 1e-5 * 255.0
+
+
+def test_blur_kernel_past_the_edge(cuda):
+    """SIFT's 6x20 octave under a 25-tap blur: periodic reflect-101."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(4)
+    x = torch.rand((2, 6, 20), generator=g, device=cuda) * 255.0
+    k = gaussian_kernel_1d(25, 3.09)
+    out = blur_cuda.separable_blur(x, k, k)
+    ref = blur_cuda.separable_blur_reference(x, k, k)
+    assert (out - ref).abs().max().item() <= 2e-3
+
+
+def test_sift_pipeline_runs_through_the_kernels(cuda):
+    seq = SyntheticSequence.generate(n_frames=8, shape=(240, 320),
+                                     dropouts=((4, 5),), dropout_keep=0.0)
+    preset = get_preset("tracking_sift")
+    vo = preset.build(seq.K)
+    mods = (lk_cuda, blur_cuda, crop_cuda, rowconv_cuda)
+    before = [m.launches for m in mods]
+    est, _, _, stats = preset.run(seq, vo)
+    assert all(m.launches > b for m, b in zip(mods, before))
     assert np.isfinite(est).all()
     assert any(s["fallback"] for s in stats[1:])

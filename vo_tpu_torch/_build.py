@@ -3,7 +3,7 @@
 Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface under ``vo_tpu_torch/_build/`` (git-ignored), at
 first use, and loaded with ``ctypes``. A library is rebuilt when its source
-is newer. Every C entry point returns ``cudaGetLastError()`` after its
+or a shared header is newer. Every C entry point returns ``cudaGetLastError()`` after its
 launch; ``check`` turns a non-zero code into an exception.
 """
 
@@ -45,10 +45,15 @@ def _paths(name: str) -> tuple[Path, Path]:
 
 
 def _stale(name: str) -> bool:
+    """Whether the library is missing or older than its source or any of
+    the shared headers (``csrc/*.cuh``)."""
     src, lib = _paths(name)
     if not src.exists():
         raise FileNotFoundError(src)
-    return not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime
+    if not lib.exists():
+        return True
+    newest = max(p.stat().st_mtime for p in (src, *SRC_DIR.glob("*.cuh")))
+    return lib.stat().st_mtime < newest
 
 
 def _start(name: str) -> tuple[subprocess.Popen, Path, Path]:

@@ -20,6 +20,8 @@
 
 #include <cstring>
 
+#include "reflect101.cuh"
+
 namespace {
 
 constexpr int kTileW = 64;
@@ -31,14 +33,6 @@ struct Taps {  // 1,032 bytes of kernel parameters (the limit is 4 KB)
   float y[kMaxTaps];
   float x[kMaxTaps];
 };
-
-__device__ __forceinline__ int reflect101(int i, int n) {
-  if (i < 0) i = -i;
-  if (i > n - 1) i = 2 * (n - 1) - i;
-  // rows/cols far past a ragged tile edge only feed outputs that are
-  // never stored; clamp them so every read stays inside the image
-  return min(max(i, 0), n - 1);
-}
 
 __global__ void separable_blur_kernel(const float* __restrict__ x,
                                       float* __restrict__ y, int H, int W,
@@ -97,7 +91,7 @@ extern "C" const char* vo_cuda_error_string(int code) {
 
 // x, y: (B, H, W) f32 contiguous on the device; ky: 2*ry+1 taps, kx:
 // 2*rx+1 taps (f32, host memory, copied into the launch's parameters).
-// The caller guarantees H > ry, W > rx, radii <= 64, B <= 65535.
+// The caller guarantees radii <= 64, B <= 65535.
 extern "C" int separable_blur_f32(const float* x, float* y, int B, int H,
                                   int W, const float* ky, int ry,
                                   const float* kx, int rx, void* stream) {

@@ -2,8 +2,9 @@
 
 `separable_blur` replaces vo_tpu/ops/pallas_blur.py:pallas_separable_blur
 (the Pallas `_blur_kernel`): correlation with odd row taps kx and column
-taps ky (radius <= 64), reflect-101 borders, f32 accumulation, batched over
-leading dims. On a CUDA tensor it launches ``csrc/separable_blur.cu`` once
+taps ky (radius <= 64), reflect-101 borders (periodic where a radius reaches
+past the axis, as jnp.pad(mode="reflect") gives on SIFT's smallest octaves),
+f32 accumulation, batched over leading dims. On a CUDA tensor it launches ``csrc/separable_blur.cu`` once
 for the whole batch; on a CPU tensor it runs `separable_blur_reference`,
 the shift-add path of vo_tpu/ops/conv.py.
 """
@@ -46,10 +47,6 @@ def separable_blur(img: torch.Tensor, ky, kx) -> torch.Tensor:
     if img.dim() < 2:
         raise ValueError("separable_blur: input must be (..., H, W)")
     H, W = img.shape[-2:]
-    if H <= ry or W <= rx:
-        raise ValueError(
-            f"separable_blur: ({H}, {W}) too small for radii ({ry}, {rx})"
-        )
     if img.device.type == "cpu":
         return separable_blur_reference(img, ky, kx)
     if img.device.type != "cuda":

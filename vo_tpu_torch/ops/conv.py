@@ -31,19 +31,27 @@ def gaussian_kernel_1d(ksize: int, sigma: float | None = None) -> np.ndarray:
     return k / k.sum()
 
 
-def _reflect_index(n: int, r: int, device) -> torch.Tensor:
-    i = torch.arange(-r, n + r, device=device).abs()
+def reflect101(i: torch.Tensor, n: int) -> torch.Tensor:
+    """Periodic reflect-101 of indices into [0, n): index mod 2(n-1), then
+    mirrored, so a pad wider than the axis reflects again and again, as
+    numpy's and jnp.pad's mode="reflect" do (n == 1 maps to 0)."""
+    if n == 1:
+        return torch.zeros_like(i)
+    i = torch.remainder(i, 2 * (n - 1))
     return torch.where(i > n - 1, 2 * (n - 1) - i, i)
+
+
+def _reflect_index(n: int, r: int, device) -> torch.Tensor:
+    return reflect101(torch.arange(-r, n + r, device=device), n)
 
 
 def reflect_pad(img: torch.Tensor, ry: int, rx: int | None = None
                 ) -> torch.Tensor:
-    """Reflect-101 pad the last two axes by (ry, rx); needs ry < H, rx < W."""
+    """Reflect-101 pad the last two axes by (ry, rx), periodically where a
+    pad is wider than its axis."""
     if rx is None:
         rx = ry
     H, W = img.shape[-2:]
-    if ry >= H or rx >= W:
-        raise ValueError(f"reflect pad ({ry}, {rx}) too large for ({H}, {W})")
     if ry:
         img = img.index_select(-2, _reflect_index(H, ry, img.device))
     if rx:

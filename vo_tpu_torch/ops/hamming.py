@@ -1,8 +1,11 @@
-"""Exact Hamming knn(2) + ratio matching (port of vo_tpu/ops/hamming.py).
+"""Exact knn(2) + ratio matching (port of vo_tpu/ops/hamming.py): Hamming
+for ORB's bits, squared L2 for SIFT's float descriptors.
 
 With descriptors as (N, 256) {0, 1} bit planes, H(a, b) = |a| + |b| -
 2 a.b, so the whole (N1, N2) table is one product. The product runs in
 f32 with TF32 off: every partial sum is an integer <= 256, exact in f32.
+The squared-L2 table is the same form over float rows (a plain product,
+left to torch.matmul).
 """
 
 from __future__ import annotations
@@ -34,15 +37,26 @@ def hamming_table(bits1: torch.Tensor, bits2: torch.Tensor) -> torch.Tensor:
     return d.round().to(torch.int32)
 
 
+def l2_table(desc1: torch.Tensor, desc2: torch.Tensor) -> torch.Tensor:
+    """(N1, N2) squared-L2 distances between float descriptor rows."""
+    d1 = (desc1 * desc1).sum(1)
+    d2 = (desc2 * desc2).sum(1)
+    return d1[:, None] + d2[None, :] - 2.0 * (desc1 @ desc2.T)
+
+
 def knn2_ratio_match(table: torch.Tensor, valid1: torch.Tensor,
-                     valid2: torch.Tensor, ratio: float = 0.8) -> Matches:
-    """knn(k=2) + ratio test over a distance table with validity masks."""
+                     valid2: torch.Tensor, ratio: float = 0.8,
+                     squared: bool = False) -> Matches:
+    """knn(k=2) + ratio test over a distance table with validity masks.
+    `squared` marks a table of squared distances (`l2_table`): the ratio
+    is then applied squared, as OpenCV ratio-tests true distances."""
     d = torch.where(valid2[None, :], table.float(), BIG)
     idx1 = torch.argmin(d, dim=1)
     best = torch.gather(d, 1, idx1[:, None])[:, 0]
     cols = torch.arange(d.shape[1], device=d.device)[None, :]
     second = torch.where(cols == idx1[:, None], BIG, d).amin(dim=1)
-    ok = valid1 & (best < ratio * second) & (best < BIG)
+    r = ratio * ratio if squared else ratio
+    ok = valid1 & (best < r * second) & (best < BIG)
     return Matches(idx=idx1, dist=best, valid=ok)
 
 

@@ -20,6 +20,7 @@ import ctypes
 import torch
 
 from .. import _build
+from . import crop_cuda
 
 launches = 0  # kernel launches, for proving that a run went through B1
 
@@ -41,12 +42,10 @@ def crop_windows(img: torch.Tensor, ox: torch.Tensor, oy: torch.Tensor,
                  S: int, precision: str,
                  dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """(N, S, S) crops at integer origins, values in the working type,
-    computed in `dtype` (vo_tpu/ops/lk.py:_crop_windows)."""
-    img = img.to(_work_dtype(precision)).to(dtype)
-    ar = torch.arange(S, device=img.device)
-    rows = (oy.long()[:, None] + ar)[:, :, None]  # (N, S, 1)
-    cols = (ox.long()[:, None] + ar)[:, None, :]  # (N, 1, S)
-    return img[rows, cols]
+    computed in `dtype` (vo_tpu/ops/lk.py:_crop_windows): B3's plain
+    version on the converted image."""
+    return crop_cuda.crop_windows_reference(
+        img.to(_work_dtype(precision)).to(dtype), ox, oy, S)
 
 
 def _sample(win: torch.Tensor, oy, ox, fy, fx, n: int) -> torch.Tensor:

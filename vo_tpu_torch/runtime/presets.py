@@ -1,5 +1,5 @@
-"""Named pipeline presets (port of vo_tpu/runtime/presets.py; the
-tracking_orb preset, feature_tracking.cpp with ORB keypoints)."""
+"""Named pipeline presets (port of vo_tpu/runtime/presets.py; the tracking
+presets, feature_tracking.cpp with ORB or SIFT keypoints)."""
 
 from __future__ import annotations
 
@@ -7,6 +7,7 @@ from dataclasses import dataclass
 from typing import Callable
 
 from ..frontend.orb import OrbConfig
+from ..frontend.sift import SiftConfig
 from ..models.vo import TrackingVO, VOConfig, run_vo
 
 
@@ -25,6 +26,12 @@ class Preset:
 
 
 PRESETS = {
+    "tracking_sift": Preset(
+        "tracking_sift",
+        "SIFT detect + pyramidal LK tracking, re-detect fallback <150",
+        TrackingVO,
+        VOConfig(detector="sift", sift=SiftConfig(nfeatures=3000)),
+    ),
     "tracking_orb": Preset(
         "tracking_orb",
         "ORB detect + pyramidal LK tracking, re-detect fallback <150",
