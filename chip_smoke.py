@@ -7,7 +7,8 @@ Run from the repository root on a machine with a CUDA card:
 Phases, each of which raises on failure (the script then exits non-zero):
 
 1. build: nvcc compiles the four kernels (csrc/*.cu) for sm_90a, in
-   parallel;
+   parallel, and prints each compiled kernel's registers, stack frame and
+   spills;
 2. kernels: each kernel against its plain PyTorch version on the card, on
    the inputs the two tracking paths give it at KITTI shape (376x1241):
    B1 (LK level) at bf16 and f32 on all four levels of a tracking_orb step
@@ -21,7 +22,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
    kernel's own domain; B4 (1-D correlation) on the layer-flattened
    (7056, 2560) Gaussian canvas along both axes, and past the edge of a
    6x20 plane. Each is timed with CUDA events beside its plain version and
-   one PyTorch call that computes the same function;
+   one PyTorch call that computes the same function, B1 also per level
+   (with its mean iterations) and B2 per SIFT octave (beside the octave's
+   byte bound);
 3. pipelines: tracking_orb over a 60-frame synthetic KITTI-shape sequence
    whose frame 45 is textureless (forcing a re-detect), then tracking_sift
    over the same sequence without the blank frame (its tracks decay below
@@ -71,6 +74,31 @@ EPS32 = float(np.finfo(np.float32).eps)
 
 def _log(msg: str) -> None:
     print(f"[chip_smoke] {msg}", flush=True)
+
+
+def ptxas_summary(out: str) -> list[str]:
+    """One line per compiled kernel from nvcc's `-Xptxas -v` output: its
+    (demangled) name, registers, stack frame and spills."""
+    import re
+    import shutil
+
+    rows, name = [], None
+    for line in out.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+            rows.append([name, "", ""])
+        elif name and "stack frame" in line:
+            rows[-1][1] = line.split(":")[-1].strip()
+        elif name and "Used" in line and "registers" in line:
+            rows[-1][2] = line.split(":", 1)[-1].strip()
+    if rows and shutil.which("c++filt"):
+        names = subprocess.run(
+            ["c++filt"], input="\n".join(r[0] for r in rows),
+            capture_output=True, text=True).stdout.split("\n")
+        for r, n in zip(rows, names):
+            r[0] = n or r[0]
+    return [f"{n}: {frame}; {regs}" for n, frame, regs in rows]
 
 
 def _time_ms(fn, reps: int) -> float:
@@ -290,7 +318,7 @@ def check_lk(seqs, device) -> dict:
 
     base = get_preset("tracking_orb").config
     worst, ms, plain_ms, n_bytes, n_flops = 0.0, 0.0, 0.0, 0.0, 0.0
-    failed, timed = [], []
+    failed, timed, levels = [], [], []
     for seq_name, seq in seqs:
         for precision in ("bf16", "f32"):
             cfg = base._replace(lk=LKConfig(precision=precision))
@@ -318,16 +346,29 @@ def check_lk(seqs, device) -> dict:
                 worst = max(worst, st["max"])
                 if seq_name == "kitti" and precision == "bf16":
                     timed.append(args)
-                    ms += _time_ms(lambda: lk_cuda.refine_level(*args), 20)
+                    lvl_ms = _time_ms(lambda: lk_cuda.refine_level(*args), 20)
                     plain_ms += _time_ms(
                         lambda: lk_cuda.refine_level_reference(*args), 3)
                     img1, img2 = args[0], args[1]
-                    n_bytes += (img1.numel() * img1.element_size()
-                                + img2.numel() * img2.element_size()
-                                + pre.numel() * (6 * 4 + 1 + 4 * 4 + 8 + 1
-                                                 + 4))
-                    n_flops += lk_flops(cfg.lk.win, int(pre.sum()),
-                                        int(its.sum()))
+                    # images read once; per point 5 (N, 2) f32 inputs and
+                    # pre in, v, solvable and iterations out
+                    lvl_bytes = (img1.numel() * img1.element_size()
+                                 + img2.numel() * img2.element_size()
+                                 + pre.numel() * (5 * 8 + 1 + 8 + 1 + 4))
+                    lvl_flops = lk_flops(cfg.lk.win, int(pre.sum()),
+                                         int(its.sum()))
+                    lvl_bound, _ = _bound_ms(lvl_bytes, lvl_flops)
+                    levels.append({
+                        "level": level, "S": args[8], "N": int(pre.shape[0]),
+                        "refined": int(pre.sum()),
+                        "mean_iters": its[pre].float().mean().item()
+                        if bool(pre.any()) else 0.0,
+                        "max_iters": int(its.max()) if its.numel() else 0,
+                        "ms": lvl_ms, "bound_ms": lvl_bound})
+                    _log(f"B1 level {level} time: {levels[-1]}")
+                    ms += lvl_ms
+                    n_bytes += lvl_bytes
+                    n_flops += lvl_flops
     if failed:
         raise RuntimeError(f"B1 disagrees with its plain version: {failed}")
     bound, by = _bound_ms(n_bytes, n_flops)
@@ -343,6 +384,7 @@ def check_lk(seqs, device) -> dict:
         "replaces": "vo_tpu/ops/lk_pallas.py:157",
         "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound, "bound_by": by, "library_ms": None,
+        "levels": levels,
     }
 
 
@@ -526,9 +568,9 @@ def _sum_ms(fns, reps: int) -> float:
     return sum(_time_ms(f, reps) for f in fns)
 
 
-def check_sift_blurs(calls) -> None:
+def check_sift_blurs(calls) -> dict:
     """B2 against its plain version on every blur of SIFT's scale space
-    (0..255 images), and its time over all of them."""
+    (0..255 images), and its time over all of them and per octave."""
     import torch
     import torch.nn.functional as F
 
@@ -561,8 +603,9 @@ def check_sift_blurs(calls) -> None:
 
     # F.pad's reflect needs the pad below the axis length
     fit = [c for c in calls if len(c[1]) // 2 < c[0].shape[-2]]
-    ms = _sum_ms([lambda c=c: blur_cuda.separable_blur(*c) for c in calls],
-                 20)
+    each = [_time_ms(lambda c=c: blur_cuda.separable_blur(*c), 20)
+            for c in calls]
+    ms = sum(each)
     plain_ms = _sum_ms([lambda c=c: blur_cuda.separable_blur_reference(*c)
                         for c in calls], 3)
     library_ms = _sum_ms([library(*c) for c in fit], 20)
@@ -573,6 +616,22 @@ def check_sift_blurs(calls) -> None:
          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, F.conv2d x2 {library_ms:.4f}"
          f" ms (the {len(fit)} blurs whose pad fits F.pad), bound "
          f"{bound:.4f} ms ({by})")
+    octaves = []  # the blurs of one plane shape, in order: one octave each
+    for (hw, k), t, c in zip(shapes, each, calls):
+        if not octaves or octaves[-1]["shape"] != list(hw):
+            octaves.append({"octave": len(octaves), "shape": list(hw),
+                            "taps": [], "ms": 0.0, "bound_ms": 0.0})
+        o = octaves[-1]
+        o["taps"].append(k)
+        o["ms"] += t
+        o["bound_ms"] += _bound_ms(2 * c[0].numel() * 4, 0.0)[0]
+    for o in octaves:
+        _log(f"B2 SIFT octave {o['octave']} {o['shape'][0]}x{o['shape'][1]}, "
+             f"{len(o['taps'])} blurs of {o['taps']} taps: kernel "
+             f"{o['ms']:.4f} ms, bytes bound {o['bound_ms']:.4f} ms")
+    return {"sift_blurs_ms": ms, "sift_blurs_plain_ms": plain_ms,
+            "sift_blurs_library_ms": library_ms, "sift_blurs_bound_ms": bound,
+            "sift_blurs_max_abs_err": worst, "octaves": octaves}
 
 
 def _crop_flat_index(img, ox, oy, S):
@@ -953,9 +1012,8 @@ def main() -> int:
                          "crop_windows"])
     _log(f"built {sorted(logs)} in {time.perf_counter() - t0:.1f} s")
     for name, out in logs.items():
-        for line in out.splitlines():
-            if "registers" in line or "spill" in line:
-                _log(f"  {name}: {line.strip()}")
+        for line in ptxas_summary(out):
+            _log(f"  {name}: {line}")
 
     t0 = time.perf_counter()
     base = SyntheticSequence.generate(
@@ -972,7 +1030,7 @@ def main() -> int:
     kernels = [check_lk([("kitti", seq), ("240x320", small)], device),
                check_blur(seq, device)]
     sift_calls = capture_sift(clean, device)
-    check_sift_blurs(sift_calls["separable_blur"])
+    kernels[1].update(check_sift_blurs(sift_calls["separable_blur"]))
     kernels += [check_crop(sift_calls["crop_windows"], device),
                 check_rowconv(sift_calls["conv_rows"], sift_calls["conv_cols"],
                               device)]

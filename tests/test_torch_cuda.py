@@ -29,14 +29,31 @@ def cuda():
 
 
 @pytest.mark.parametrize("precision", ["bf16", "f32"])
-def test_lk_kernel_matches_plain(cuda, precision):
-    seq = SyntheticSequence.generate(n_frames=2, shape=(240, 320), seed=3)
-    cfg = tlk.LKConfig(precision=precision)
+@pytest.mark.parametrize(
+    "win,max_level,shape,sizes",
+    [
+        # the compiled window; S=30 at the 30x40 level
+        (21, 3, (240, 320), {30, 35}),
+        # the presets' S=35 and S=47 (a 47-row coarsest level, as KITTI's)
+        (21, 2, (188, 320), {35, 47}),
+        (15, 2, (188, 320), {29, 47}),  # generic window, odd
+        (20, 2, (188, 320), {34, 47}),  # generic, even: two border columns
+    ],
+)
+def test_lk_kernel_matches_plain(cuda, precision, win, max_level, shape,
+                                 sizes):
+    """Every level of a track, 701 points (no multiple of the warps per
+    block), some of whose templates reach outside their window (the
+    kernel's checked template reads)."""
+    H, W = shape
+    seq = SyntheticSequence.generate(n_frames=2, shape=shape, seed=3)
+    cfg = tlk.LKConfig(precision=precision, win=win, max_level=max_level)
     pyr1 = tlk.lk_build_pyramid(torch.from_numpy(seq.frame(0)).to(cuda), cfg)
     pyr2 = tlk.lk_build_pyramid(torch.from_numpy(seq.frame(1)).to(cuda), cfg)
+    n = 701
     rng = np.random.default_rng(0)
-    pts = torch.tensor(np.stack([rng.uniform(5, 315, 700),
-                                 rng.uniform(5, 235, 700)], 1),
+    pts = torch.tensor(np.stack([rng.uniform(5, W - 5, n),
+                                 rng.uniform(5, H - 5, n)], 1),
                        dtype=torch.float32, device=cuda)
     calls = []
     real = lk_cuda.refine_level
@@ -48,12 +65,17 @@ def test_lk_kernel_matches_plain(cuda, precision):
     lk_cuda.refine_level = spy
     try:
         before = lk_cuda.launches
-        tlk.lk_pyramid_track(pyr1, pyr2, pts, torch.ones(700, dtype=torch.bool,
+        tlk.lk_pyramid_track(pyr1, pyr2, pts, torch.ones(n, dtype=torch.bool,
                                                          device=cuda), cfg)
     finally:
         lk_cuda.refine_level = real
-    assert lk_cuda.launches - before == len(calls) == 4
+    assert lk_cuda.launches - before == len(calls) == max_level + 1
+    assert {args[8] for args in calls} == sizes
+    half = (win + 1) // 2
+    outside = 0
     for args in calls:
+        q1, S = args[2], args[8]
+        outside += int(((q1 < half - 1) | (q1 > S - half)).any(1).sum())
         out = real(*args)
         ref = lk_cuda.refine_level_reference(*args)
         torch.cuda.synchronize()
@@ -65,10 +87,22 @@ def test_lk_kernel_matches_plain(cuda, precision):
         # px off at a level whose tail has median condition 91), so
         # shares up to 5 % and 1e-2 px there; flag agreement >= 99 % too
         st = lk_stats(args, out, ref)
-        print(precision, st)
+        print(precision, win, S, st)
         assert lk_within(st, cfg.eps, max_share=0.05, max_band=0.05,
                          max_rest=1e-2), str(st)
         assert st["agree"] >= 0.99, str(st)
+    assert outside > 0
+
+
+def test_lk_kernel_no_points(cuda):
+    img = torch.rand((120, 160), device=cuda)
+    e = torch.zeros((0, 2), device=cuda)
+    before = lk_cuda.launches
+    v, solv, its = lk_cuda.refine_level(
+        img, img, e, e, e, torch.zeros(0, dtype=torch.bool, device=cuda), e,
+        e, 35, tlk.LKConfig())
+    assert lk_cuda.launches == before  # nothing to launch
+    assert v.shape == (0, 2) and solv.shape == (0,) and its.shape == (0,)
 
 
 @pytest.mark.parametrize(
@@ -91,6 +125,26 @@ def test_blur_kernel_matches_plain(cuda, shape, ky, kx, atol):
     assert blur_cuda.launches == before + 1
     ref = blur_cuda.separable_blur_reference(x, ty, tx)
     assert (out - ref).abs().max().item() <= atol
+
+
+@pytest.mark.parametrize("radius", [3, 5, 6, 8, 10, 12, 2, 17, 64])
+@pytest.mark.parametrize(
+    "shape", [(6, 20), (12, 39), (2, 181, 333), (376, 1241), (3, 400, 1000)])
+def test_blur_kernel_radii(cuda, shape, radius):
+    """The compiled radii (3: Harris; 5-12: SIFT) and generic ones, on
+    SIFT's two smallest octaves (periodic reflect-101) and on shapes that
+    are no multiple of any tile: 181x333 takes the 16x32 tiles, 376x1241
+    the 32x64 ones, 3x400x1000 the 64x64 ones."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(radius)
+    x = torch.rand(shape, generator=g, device=cuda) * 255.0
+    taps = gaussian_kernel_1d(2 * radius + 1, radius / 3.0)
+    before = blur_cuda.launches
+    out = blur_cuda.separable_blur(x, taps, taps)
+    torch.cuda.synchronize()
+    assert blur_cuda.launches == before + 1
+    ref = blur_cuda.separable_blur_reference(x, taps, taps)
+    assert (out - ref).abs().max().item() <= (2e-3 if radius <= 17 else 5e-3)
 
 
 def test_blur_kernel_rejects_float64(cuda):

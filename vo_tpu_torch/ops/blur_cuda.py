@@ -58,6 +58,8 @@ def separable_blur(img: torch.Tensor, ky, kx) -> torch.Tensor:
     if B > 65535:
         raise ValueError("separable_blur: more than 65535 planes")
     y = torch.empty_like(x)
+    if y.numel() == 0:
+        return y.reshape(img.shape)
     # host taps: the C entry point copies them into the launch's parameters
     hky = np.ascontiguousarray(ky, np.float32)
     hkx = np.ascontiguousarray(kx, np.float32)

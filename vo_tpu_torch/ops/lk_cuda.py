@@ -173,27 +173,33 @@ def refine_level(img1, img2, q1, q20, flow, pre, org1, org2, S, config):
         raise RuntimeError(f"refine_level: no kernel for {img1.device}")
     dev = img1.device
     N = q1.shape[0]
-    io = torch.cat([q1, q20, flow], dim=1).float().contiguous()
-    pre_u8 = pre.to(torch.uint8).contiguous()
-    org = torch.cat([org1, org2], dim=1).to(torch.int32).contiguous()
+    # the main path hands over f32 (N, 2) points and integer-valued f32
+    # origins, so these are the tensors themselves
+    q1, q20, flow, org1, org2 = (t.float().contiguous()
+                                 for t in (q1, q20, flow, org1, org2))
+    pre = (pre if pre.dtype == torch.bool else pre != 0).contiguous()
+    if img1.dtype != img2.dtype:  # the kernel reads one dtype; exact in f32
+        img1, img2 = img1.float(), img2.float()
     img1 = img1.contiguous()
     img2 = img2.contiguous()
     v = torch.empty((N, 2), dtype=torch.float32, device=dev)
-    solv = torch.empty((N,), dtype=torch.uint8, device=dev)
+    solv = torch.empty((N,), dtype=torch.bool, device=dev)
     its = torch.empty((N,), dtype=torch.int32, device=dev)
+    if N == 0:
+        return v, solv, its
     lib = _lib()
     H, W = img1.shape
     code = lib.lk_refine_level(
-        img1.data_ptr(), int(img1.dtype == torch.bfloat16),
-        img2.data_ptr(), int(img2.dtype == torch.bfloat16),
+        img1.data_ptr(), img2.data_ptr(), int(img1.dtype == torch.bfloat16),
         int(config.precision == "bf16"), H, W,
-        io.data_ptr(), pre_u8.data_ptr(), org.data_ptr(), N, S, config.win,
-        config.iters, float(config.eps**2), float(config.min_eig_threshold),
+        q1.data_ptr(), q20.data_ptr(), flow.data_ptr(), pre.data_ptr(),
+        org1.data_ptr(), org2.data_ptr(), N, S, config.win, config.iters,
+        float(config.eps**2), float(config.min_eig_threshold),
         v.data_ptr(), solv.data_ptr(), its.data_ptr(), _build.stream_ptr(dev),
     )
     _build.check(lib, code, "lk_refine_level")
     launches += 1
-    return v, solv.bool(), its
+    return v, solv, its
 
 
 def _lib():
@@ -201,7 +207,7 @@ def _lib():
     if not getattr(lib, "_typed", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.lk_refine_level.argtypes = [
-            p, i, p, i, i, i, i, p, p, p, i, i, i, i, f, f, p, p, p, p,
+            p, p, i, i, i, i, p, p, p, p, p, p, i, i, i, i, f, f, p, p, p, p,
         ]
         lib.lk_refine_level.restype = ctypes.c_int
         lib._typed = True
