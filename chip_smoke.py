@@ -17,20 +17,24 @@ Phases, each of which raises on failure (the script then exits non-zero):
    (separable blur) on the 1408x1280 Harris canvas plus an odd shape,
    asymmetric taps and the widest radius, and on every blur of
    tracking_sift's scale space (eight octaves, 752x2482 down to 6x20);
-   B3 (window crop) bit for bit on SIFT's orientation (S=37) and
-   descriptor (S=79) windows and on an 8-aligned S=40 case from the Pallas
-   kernel's own domain; B4 (1-D correlation) on the layer-flattened
-   (7056, 2560) Gaussian canvas along both axes, and past the edge of a
-   6x20 plane. Each is timed with CUDA events beside its plain version and
-   one PyTorch call that computes the same function, B1 also per level
-   (with its mean iterations) and B2 per SIFT octave (beside the octave's
-   byte bound);
+   B3 (window crop) bit for bit, both maps in one launch and one map at a
+   time, on SIFT's orientation (S=37) and descriptor (S=79) window pairs,
+   on an 8-aligned S=40 case from the Pallas kernel's own domain and on
+   windows past every edge of the map; B4 (1-D correlation) bit for bit,
+   both passes from one read and each axis alone, on the layer-flattened
+   (7056, 2560) Gaussian canvas, and past the edge of a 6x20 plane. Each is
+   timed with CUDA events beside its plain version and one PyTorch call
+   that computes the same function, B1 also per level (with its mean
+   iterations), B2 per SIFT octave (beside the octave's byte bound), B3
+   per window size and B4 per entry point (each beside its byte bound);
 3. pipelines: tracking_orb over a 60-frame synthetic KITTI-shape sequence
    whose frame 45 is textureless (forcing a re-detect), then tracking_sift
    over the same sequence without the blank frame (its tracks decay below
    150 and it re-detects on its own), each with the launch counters zeroed
    just before and read just after; fps, ATE against its limit, re-detects
-   and launches; SIFT detect time;
+   and launches (on tracking_sift two B3 launches per B4 launch: one
+   detect crops both maps at two window sizes and takes both gradients in
+   one pass); SIFT detect time;
 4. plain paths: tracking_orb's first 5 steps through the plain versions,
    each from the kernel path's state with the same RANSAC draws, beside
    the pose's own response to a 1e-4 px jitter of the tracked points, then
@@ -106,7 +110,10 @@ def _time_ms(fn, reps: int) -> float:
     events. The device first spins for ~10 ms, so the host queues the runs
     ahead of it and the events time the device's work, not the host's
     launch rate (where queueing takes longer than that, as for the plain
-    versions' thousands of small launches, they time both)."""
+    versions' thousands of small launches, they time both). The runs reuse
+    their inputs, so an input that fits the 50 MB L2 may be read from it:
+    B4's 72 MB canvas does not fit, and B3 is held by the windows it writes
+    (333 MB at S=79), not by its reads of the maps."""
     import torch
 
     fn()
@@ -547,7 +554,10 @@ def time_sift_detect(seq, device, reps: int = 5) -> None:
 
 def capture_sift(seq, device) -> dict:
     """The calls of B2, B3 and B4, with their arguments, in one
-    tracking_sift detect of frame 0."""
+    tracking_sift detect of frame 0 (B3's and B4's single-map and
+    single-axis entry points too, which the detect must not call)."""
+    import contextlib
+
     import torch
 
     from vo_tpu_torch.runtime.presets import get_preset
@@ -555,13 +565,22 @@ def capture_sift(seq, device) -> dict:
     mods = _kernel_modules()
     vo = get_preset("tracking_sift").build(seq.K, device=device)
     spies = {n: _capture(mods[m], n) for n, m in (
-        ("separable_blur", "separable_blur"), ("crop_windows", "crop_windows"),
-        ("conv_rows", "row_conv"), ("conv_cols", "row_conv"))}
-    with spies["separable_blur"][0], spies["crop_windows"][0], \
-            spies["conv_rows"][0], spies["conv_cols"][0]:
+        ("separable_blur", "separable_blur"),
+        ("crop_windows_pair", "crop_windows"), ("crop_windows", "crop_windows"),
+        ("conv_rows_cols", "row_conv"), ("conv_rows", "row_conv"),
+        ("conv_cols", "row_conv"))}
+    with contextlib.ExitStack() as stack:
+        for patch, _ in spies.values():
+            stack.enter_context(patch)
         vo.detect(seq.frame(0))
     torch.cuda.synchronize()
-    return {n: calls for n, (_, calls) in spies.items()}
+    calls = {n: c for n, (_, c) in spies.items()}
+    stray = {n: len(calls[n]) for n in ("crop_windows", "conv_rows",
+                                        "conv_cols") if calls[n]}
+    if stray:
+        raise RuntimeError(f"SIFT detect took single-map/single-axis entry "
+                           f"points: {stray}")
+    return calls
 
 
 def _sum_ms(fns, reps: int) -> float:
@@ -646,21 +665,24 @@ def _crop_flat_index(img, ox, oy, S):
     return torch.where(inside, rows[:, :, None] * W + cols[:, None, :], H * W)
 
 
-def _crop_library(img, ox, oy, S):
-    """One advanced-indexing call on precomputed indices into the image
-    with a trailing zero (the value of every sample outside it)."""
+def _crop_library(maps, ox, oy, S):
+    """One advanced-indexing call on precomputed indices into the stacked
+    flattened maps, each with a trailing zero (the value of every sample
+    outside it)."""
     import torch
 
-    idx = _crop_flat_index(img, ox, oy, S)
-    flat = torch.cat([img.reshape(-1), img.new_zeros(1)])
-    return lambda: flat[idx]
+    idx = _crop_flat_index(maps[0], ox, oy, S)
+    flat = torch.stack([torch.cat([m.reshape(-1), m.new_zeros(1)])
+                        for m in maps])
+    return lambda: flat[:, idx]
 
 
-def _crop_bytes(img, ox, oy, S) -> tuple[int, int]:
-    """Device bytes one crop call must move: the distinct image pixels its
-    windows cover, read once (windows overlap, and a secondary orientation
-    peak repeats its keypoint's window), and every window sample written
-    once, plus the origins read. Returns (bytes, distinct pixels)."""
+def _crop_bytes(img, ox, oy, S, maps: int) -> tuple[int, int]:
+    """Device bytes one crop call over `maps` maps of img's shape must
+    move: per map the distinct pixels its windows cover, read once
+    (windows overlap, and a secondary orientation peak repeats its
+    keypoint's window), and every window sample written once; the origins
+    read once. Returns (bytes, distinct pixels per map)."""
     import torch
 
     H, W = img.shape
@@ -668,135 +690,183 @@ def _crop_bytes(img, ox, oy, S) -> tuple[int, int]:
     covered[_crop_flat_index(img, ox, oy, S)] = True
     pixels = int(covered[:H * W].sum())
     n = ox.shape[0]
-    return 4 * pixels + 4 * n * S * S + 8 * n, pixels
+    return maps * (4 * pixels + 4 * n * S * S) + 8 * n, pixels
 
 
 def check_crop(calls, device) -> dict:
-    """B3 bit for bit against its plain version on SIFT's windows and on
-    an 8-aligned S=40 case; timed over the four crops of one detect."""
+    """B3 bit for bit against its plain versions, both maps in one launch
+    and one map at a time, on SIFT's window pairs, an 8-aligned S=40 case
+    and windows past every edge; timed per window size over the pair calls
+    of one detect."""
     import torch
 
     from vo_tpu_torch.ops import crop_cuda
 
-    got = [(tuple(c[0].shape), int(c[1].shape[0]), c[3]) for c in calls]
+    got = [(tuple(c[0].shape), int(c[2].shape[0]), c[4]) for c in calls]
     _log(f"B3 main-path calls (map shape, N, S): {got}")
-    if [g[2] for g in got] != [37, 37, 79, 79]:
-        raise RuntimeError(f"unexpected SIFT crop sizes {got}")
+    if [g[2] for g in got] != [37, 79]:
+        raise RuntimeError(f"unexpected SIFT crop pairs {got}")
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
-    img = calls[0][0]
-    H, W = img.shape
+    a, b = calls[0][0], calls[0][1]
+    H, W = a.shape
     n, S = 3476, 40
     ox = torch.randint(0, W - S + 1, (n,), generator=gen, device=device)
     oy = torch.randint(0, (H - S) // 8 + 1, (n,), generator=gen,
                        device=device) * 8
-    cases = [(f"SIFT S={c[3]} N={int(c[1].shape[0])}", c) for c in calls]
-    cases.append(("8-aligned S=40 N=3476", (img, ox, oy, S)))
+    ex = torch.randint(-79, W, (6666,), generator=gen, device=device)
+    ey = torch.randint(-79, H, (6666,), generator=gen, device=device)
+    cases = [(f"SIFT S={c[4]} N={int(c[2].shape[0])}", c) for c in calls]
+    cases += [("8-aligned S=40 N=3476", (a, b, ox, oy, S)),
+              ("past every edge S=79 N=6666", (a, b, ex, ey, 79))]
     for name, c in cases:
-        out = crop_cuda.crop_windows(*c)
-        ref = crop_cuda.crop_windows_reference(*c)
-        lib = _crop_library(*c)()
+        pair = crop_cuda.crop_windows_pair(*c)
+        ref = crop_cuda.crop_windows_pair_reference(*c)
+        one = [crop_cuda.crop_windows(m, *c[2:]) for m in c[:2]]
+        lib = _crop_library(c[:2], *c[2:])()
         torch.cuda.synchronize()
-        outside = int((c[2][:, None] + torch.arange(c[3], device=device)
+        eq = {"pair": torch.equal(pair, ref),
+              "single": all(torch.equal(o, r) for o, r in zip(one, ref)),
+              "indexing call": torch.equal(pair, lib)}
+        outside = int((c[3][:, None] + torch.arange(c[4], device=device)
                        < 0).any(1).sum())
-        _log(f"B3 {name}: bit-equal to plain {torch.equal(out, ref)}, to the "
-             f"indexing call {torch.equal(out, lib)}; windows reaching above "
+        _log(f"B3 {name}: bit-equal to plain {eq}; windows reaching above "
              f"the map: {outside}; tolerance: bit for bit")
-        if not (torch.equal(out, ref) and torch.equal(out, lib)):
+        if not all(eq.values()):
             raise RuntimeError(f"B3 {name} disagrees")
-    out = {
-        "ms": _sum_ms([lambda c=c: crop_cuda.crop_windows(*c)
-                       for c in calls], 20),
-        "plain_ms": _sum_ms([lambda c=c: crop_cuda.crop_windows_reference(
-            *c) for c in calls], 5),
-        "library_ms": _sum_ms([_crop_library(*c) for c in calls], 20),
-    }
-    moved = [_crop_bytes(*c) for c in calls]
-    n_bytes = sum(b for b, _ in moved)
-    written = sum(4 * c[1].shape[0] * c[3] * c[3] for c in calls)
-    out["bound_ms"], out["bound_by"] = _bound_ms(n_bytes, 0.0)
-    _log(f"B3 timing (the 4 crops of one SIFT detect): kernel "
-         f"{out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms, indexing "
-         f"{out['library_ms']:.4f} ms, bound {out['bound_ms']:.4f} ms "
-         f"({out['bound_by']}: {n_bytes:.4g} bytes, of them {written:.4g} "
-         f"written and the distinct pixels the windows cover read, per "
-         f"call {[f'{p} of {c[0].numel()}' for (_, p), c in zip(moved, calls)]}"
-         f")")
+    sizes = []
+    for c in calls:
+        img, S_, N = c[0], c[4], int(c[2].shape[0])
+        n_bytes, pixels = _crop_bytes(img, c[2], c[3], S_, 2)
+        bound, by = _bound_ms(n_bytes, 0.0)
+        # what the card takes to write the same bytes and nothing else
+        blank = torch.empty((2, N, S_, S_), device=device)
+        sizes.append({
+            "S": S_, "N": N,
+            "ms": _time_ms(lambda c=c: crop_cuda.crop_windows_pair(*c), 20),
+            "single_ms": _time_ms(lambda c=c: [
+                crop_cuda.crop_windows(m, *c[2:]) for m in c[:2]], 20),
+            "plain_ms": _time_ms(
+                lambda c=c: crop_cuda.crop_windows_pair_reference(*c), 5),
+            "library_ms": _time_ms(_crop_library(c[:2], *c[2:]), 20),
+            "zero_ms": _time_ms(blank.zero_, 20),
+            "bound_ms": bound, "bound_by": by, "bytes": n_bytes,
+            "written": 2 * 4 * N * S_ * S_})
+        _log(f"B3 S={S_} N={N} (both maps): pair {sizes[-1]['ms']:.4f} ms, "
+             f"two single-map calls {sizes[-1]['single_ms']:.4f} ms, plain "
+             f"{sizes[-1]['plain_ms']:.4f} ms, indexing "
+             f"{sizes[-1]['library_ms']:.4f} ms, zero_ of the windows "
+             f"{sizes[-1]['zero_ms']:.4f} ms, bound {bound:.4f} ms ({by}: "
+             f"{n_bytes:.4g} bytes, {sizes[-1]['written']:.4g} of them "
+             f"written; {pixels} of {img.numel()} pixels covered per map)")
+    out = {k: sum(z[k] for z in sizes)
+           for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    _log(f"B3 timing (the {len(calls)} pair calls of one SIFT detect): "
+         f"kernel {out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms, "
+         f"indexing {out['library_ms']:.4f} ms, bound {out['bound_ms']:.4f} "
+         f"ms (bytes)")
     return {"name": "crop_windows", "route": "cuda",
             "source": "vo_tpu_torch/csrc/crop_windows.cu",
             "replaces": "vo_tpu/ops/pallas_crop.py:46", "max_abs_err": 0.0,
-            **out}
+            **out, "bound_by": "bytes", "sizes": sizes}
 
 
-def _conv_library(x, taps, along_cols):
-    """nn.Conv2d with reflect padding (TF32 off: vo_tpu_torch sets it)."""
+def _conv_library(x, taps, mode: str):
+    """One nn.Conv2d call with reflect padding (TF32 off: vo_tpu_torch sets
+    it): a (1, 3) or (3, 1) kernel for one axis, for both a 3x3 kernel with
+    two output channels (the row taps in the middle row of one, the column
+    taps in the middle column of the other)."""
     import torch
 
-    k = (3, 1) if along_cols else (1, 3)
-    conv = torch.nn.Conv2d(1, 1, k, padding=(1, 0) if along_cols else (0, 1),
+    t = torch.tensor(taps, dtype=torch.float32)
+    r = len(taps) // 2
+    k = 2 * r + 1
+    if mode == "rows":
+        w, pad = t.reshape(1, 1, 1, k), (0, r)
+    elif mode == "cols":
+        w, pad = t.reshape(1, 1, k, 1), (r, 0)
+    else:
+        w = torch.zeros(2, 1, k, k)
+        w[0, 0, r, :] = t
+        w[1, 0, :, r] = t
+        pad = (r, r)
+    conv = torch.nn.Conv2d(1, w.shape[0], tuple(w.shape[2:]), padding=pad,
                            padding_mode="reflect", bias=False).to(x.device)
     conv.weight.requires_grad_(False)
-    conv.weight.copy_(torch.tensor(taps, dtype=torch.float32).reshape(k))
+    conv.weight.copy_(w)
     x4 = x[None, None]
     return lambda: conv(x4)
 
 
-def check_rowconv(rows, cols, device) -> dict:
-    """B4 against its plain version on the layer-flattened Gaussian canvas
-    along both axes, and past the edge of a 6x20 plane; timed over the
-    two passes of one detect."""
+def check_rowconv(calls, device) -> dict:
+    """B4 bit for bit against its plain versions, both passes from one read
+    and each axis alone, on the layer-flattened Gaussian canvas and past
+    the edge of a 6x20 plane; timed per entry point on the canvas."""
     import torch
 
     from vo_tpu_torch.ops import rowconv_cuda
     from vo_tpu_torch.ops.conv import gaussian_kernel_1d
 
-    (flat, taps), = rows
-    (flat_c, taps_c), = cols
+    if len(calls) != 1:
+        raise RuntimeError(f"expected 1 gradient pass per detect, got "
+                           f"{len(calls)}")
+    (flat, taps), = calls
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
     small = torch.rand((6, 20), generator=gen, device=device) * 255.0
     wide = tuple(gaussian_kernel_1d(25, 3.09))
-    cases = [("rows", flat, taps, False), ("columns", flat_c, taps_c, True),
-             ("rows past the edge", small, wide, False),
-             ("columns past the edge", small, wide, True)]
-    worst = 0.0
-    for name, x, t, along_cols in cases:
-        out = (rowconv_cuda.conv_cols if along_cols
-               else rowconv_cuda.conv_rows)(x, t)
-        ref = rowconv_cuda.conv_reference(x, t, along_cols)
-        torch.cuda.synchronize()
-        err = (out - ref).abs().max().item()
-        tol = 1e-5 * x.abs().max().item()
-        _log(f"B4 {name} {tuple(x.shape)}, {len(t)} taps: max |err| "
-             f"{err:.3e}, tolerance {tol:.3e} (1e-5 of max |input|)")
-        if not err <= tol:
-            raise RuntimeError(f"B4 {name} disagrees")
-        if x is flat or x is flat_c:
-            worst = max(worst, err)
-            lib_err = (_conv_library(x, t, along_cols)()[0, 0] - out
-                       ).abs().max().item()
-            _log(f"B4 {name}: nn.Conv2d differs by {lib_err:.3e}")
-    passes = [(flat, taps, False), (flat_c, taps_c, True)]
-    out = {
-        "ms": _sum_ms([lambda: rowconv_cuda.conv_rows(flat, taps),
-                       lambda: rowconv_cuda.conv_cols(flat_c, taps_c)], 20),
-        "plain_ms": _sum_ms([lambda p=p: rowconv_cuda.conv_reference(*p)
-                             for p in passes], 5),
-        "library_ms": _sum_ms([_conv_library(*p) for p in passes], 20),
+    nine = tuple(gaussian_kernel_1d(9, 1.5))
+    entry = {
+        "pair": (rowconv_cuda.conv_rows_cols,
+                 rowconv_cuda.conv_rows_cols_reference),
+        "rows": (rowconv_cuda.conv_rows,
+                 lambda x, t: rowconv_cuda.conv_reference(x, t, False)),
+        "cols": (rowconv_cuda.conv_cols,
+                 lambda x, t: rowconv_cuda.conv_reference(x, t, True)),
     }
-    n_bytes = sum(2 * p[0].numel() * 4 for p in passes)
-    # per pixel: one product per nonzero tap and the sums between them
-    n_flops = sum(p[0].numel() * (2 * sum(1 for v in p[1] if v) - 1)
-                  for p in passes)
-    out["bound_ms"], out["bound_by"] = _bound_ms(n_bytes, n_flops)
-    _log(f"B4 timing (the 2 passes of one SIFT detect over "
-         f"{tuple(flat.shape)}): kernel {out['ms']:.4f} ms, plain "
-         f"{out['plain_ms']:.4f} ms, nn.Conv2d {out['library_ms']:.4f} ms, "
-         f"bound {out['bound_ms']:.4f} ms ({out['bound_by']})")
+    cases = [("pair", flat, taps), ("rows", flat, taps), ("cols", flat, taps),
+             ("pair", small, taps), ("pair", small, nine),
+             ("rows", small, wide), ("cols", small, wide)]
+    worst = 0.0
+    for mode, x, t in cases:
+        fn, ref_fn = entry[mode]
+        out, ref = fn(x, t), ref_fn(x, t)
+        torch.cuda.synchronize()
+        outs = out if mode == "pair" else (out,)
+        refs = ref if mode == "pair" else (ref,)
+        err = max((o - r).abs().max().item() for o, r in zip(outs, refs))
+        eq = all(torch.equal(o, r) for o, r in zip(outs, refs))
+        _log(f"B4 {mode} {tuple(x.shape)}, {len(t)} taps: bit-equal to plain "
+             f"{eq} (max |err| {err:.3e}); tolerance: bit for bit")
+        if not eq:
+            raise RuntimeError(f"B4 {mode} {tuple(x.shape)} disagrees")
+        if x is flat:
+            worst = max(worst, err)
+            lib = _conv_library(x, t, mode)()[0]
+            lib_err = max((lib[i] - o).abs().max().item()
+                          for i, o in enumerate(outs))
+            _log(f"B4 {mode}: nn.Conv2d differs by {lib_err:.3e}")
+    nz = sum(1 for v in taps if v)
+    px = flat.numel()
+    entries = {}
+    for mode, (fn, ref_fn) in entry.items():
+        passes = 2 if mode == "pair" else 1
+        # the input read once, each output written once; per pixel and
+        # pass one product per nonzero tap and the sums between them
+        bound, by = _bound_ms((1 + passes) * px * 4, passes * px * (2 * nz - 1))
+        entries[mode] = {
+            "ms": _time_ms(lambda fn=fn: fn(flat, taps), 20),
+            "plain_ms": _time_ms(lambda f=ref_fn: f(flat, taps), 5),
+            "library_ms": _time_ms(_conv_library(flat, taps, mode), 20),
+            "bound_ms": bound, "bound_by": by}
+        e = entries[mode]
+        _log(f"B4 timing, {mode} over {tuple(flat.shape)}: kernel "
+             f"{e['ms']:.4f} ms, plain {e['plain_ms']:.4f} ms, nn.Conv2d "
+             f"{e['library_ms']:.4f} ms, bound {bound:.4f} ms ({by})")
     return {"name": "row_conv", "route": "cuda",
             "source": "vo_tpu_torch/csrc/row_conv.cu",
             "replaces": "vo_tpu/ops/pallas_conv.py:39", "max_abs_err": worst,
-            **out}
+            **entries["pair"], "entry_points": entries}
 
 
 # SIFT through the kernels against SIFT through the plain versions, as the
@@ -824,14 +894,10 @@ def compare_sift_plain(seq, device) -> None:
     kern = numpy(sift_detect_and_compute(img, cfg))
     with mock.patch.object(blur_cuda, "separable_blur",
                            blur_cuda.separable_blur_reference), \
-            mock.patch.object(crop_cuda, "crop_windows",
-                              crop_cuda.crop_windows_reference), \
-            mock.patch.object(rowconv_cuda, "conv_rows",
-                              lambda x, t: rowconv_cuda.conv_reference(
-                                  x, t, False)), \
-            mock.patch.object(rowconv_cuda, "conv_cols",
-                              lambda x, t: rowconv_cuda.conv_reference(
-                                  x, t, True)):
+            mock.patch.object(crop_cuda, "crop_windows_pair",
+                              crop_cuda.crop_windows_pair_reference), \
+            mock.patch.object(rowconv_cuda, "conv_rows_cols",
+                              rowconv_cuda.conv_rows_cols_reference):
         plain = numpy(sift_detect_and_compute(img, cfg))
     torch.cuda.synchronize()
     found, dang, rel = sift_pairs(plain, kern)
@@ -1031,9 +1097,8 @@ def main() -> int:
                check_blur(seq, device)]
     sift_calls = capture_sift(clean, device)
     kernels[1].update(check_sift_blurs(sift_calls["separable_blur"]))
-    kernels += [check_crop(sift_calls["crop_windows"], device),
-                check_rowconv(sift_calls["conv_rows"], sift_calls["conv_cols"],
-                              device)]
+    kernels += [check_crop(sift_calls["crop_windows_pair"], device),
+                check_rowconv(sift_calls["conv_rows_cols"], device)]
 
     counts = {
         "tracking_orb": run_pipeline(
@@ -1043,6 +1108,10 @@ def main() -> int:
             "tracking_sift", clean, device, SIFT_ATE_LIMIT,
             tuple(_kernel_modules()), "no blank frame"),
     }
+    sift = counts["tracking_sift"]
+    if sift["crop_windows"] != 2 * sift["row_conv"]:
+        raise RuntimeError(f"tracking_sift: expected two B3 launches per B4 "
+                           f"launch (one per window size and detect): {sift}")
     time_sift_detect(clean, device)
     compare_plain_path(seq, device)
     compare_sift_plain(clean, device)

@@ -166,32 +166,100 @@ def test_pipeline_runs_through_the_kernels(cuda):
     assert any(s["fallback"] for s in stats[1:])
 
 
-@pytest.mark.parametrize("S", [8, 37, 40, 79, 128])
+def _origins(g, N, S, H, W, device):
+    """N window origins, some windows past every edge of an (H, W) map."""
+    ox = torch.randint(-S, W, (N,), generator=g, device=device)
+    oy = torch.randint(-S, H, (N,), generator=g, device=device)
+    return ox, oy
+
+
+@pytest.mark.parametrize("S", [8, 21, 37, 40, 79, 128])
 def test_crop_kernel_matches_plain(cuda, S):
-    """Bit for bit, any S up to 128, windows past every edge included."""
+    """Bit for bit, the compiled S (37, 79) and the generic one, windows
+    past every edge included; N = 1001, so N*S*S is no multiple of 4 at
+    odd S (the ragged tail)."""
     g = torch.Generator(device=cuda)
     g.manual_seed(2)
     img = torch.rand((300, 500), generator=g, device=cuda) * 255.0
-    ox = torch.randint(-S, 500, (1000,), generator=g, device=cuda)
-    oy = torch.randint(-S, 300, (1000,), generator=g, device=cuda)
+    ox, oy = _origins(g, 1001, S, 300, 500, cuda)
     before = crop_cuda.launches
     out = crop_cuda.crop_windows(img, ox, oy, S)
     torch.cuda.synchronize()
     assert crop_cuda.launches == before + 1
+    assert out.shape == (1001, S, S) and out.is_contiguous()
     assert torch.equal(out, crop_cuda.crop_windows_reference(img, ox, oy, S))
+
+
+@pytest.mark.parametrize("S", [8, 21, 37, 40, 79, 128])
+def test_crop_pair_kernel_matches_plain(cuda, S):
+    """Both maps in one launch: bit for bit the plain pair and two
+    single-map kernel calls."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(5)
+    a = torch.rand((300, 500), generator=g, device=cuda) * 255.0
+    b = torch.rand((300, 500), generator=g, device=cuda) - 0.5
+    ox, oy = _origins(g, 1001, S, 300, 500, cuda)
+    before = crop_cuda.launches
+    out = crop_cuda.crop_windows_pair(a, b, ox, oy, S)
+    torch.cuda.synchronize()
+    assert crop_cuda.launches == before + 1
+    assert out.shape == (2, 1001, S, S)
+    assert torch.equal(out, crop_cuda.crop_windows_pair_reference(
+        a, b, ox, oy, S))
+    assert torch.equal(out[0], crop_cuda.crop_windows(a, ox, oy, S))
+    assert torch.equal(out[1], crop_cuda.crop_windows(b, ox, oy, S))
+    assert crop_cuda.launches == before + 3
+
+
+@pytest.mark.parametrize(
+    "N,S",
+    [
+        (0, 37),  # nothing to launch
+        (7, 1),  # every sample its own window
+        (3, 79),  # 18,723 samples: a 3-sample tail
+        (6666, 79),  # the path's descriptor windows: many grid strides
+        (5000, 37),
+    ],
+)
+def test_crop_kernel_sizes(cuda, N, S):
+    """N = 0, S = 1, the ragged tail and N*S*S large enough that the
+    grid-stride loop goes round many times, on a map of the path's width,
+    for both entry points."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(N + S)
+    a = torch.rand((1000, 2560), generator=g, device=cuda) * 255.0
+    b = torch.rand((1000, 2560), generator=g, device=cuda) * 255.0
+    ox, oy = _origins(g, N, S, 1000, 2560, cuda)
+    before = crop_cuda.launches
+    one = crop_cuda.crop_windows(a, ox, oy, S)
+    two = crop_cuda.crop_windows_pair(a, b, ox, oy, S)
+    torch.cuda.synchronize()
+    assert crop_cuda.launches == before + (2 if N else 0)
+    assert one.shape == (N, S, S) and two.shape == (2, N, S, S)
+    assert torch.equal(one, crop_cuda.crop_windows_reference(a, ox, oy, S))
+    assert torch.equal(two, crop_cuda.crop_windows_pair_reference(
+        a, b, ox, oy, S))
+
+
+def _conv_taps(k):
+    return (-0.5, 0.0, 0.5) if k == 3 else tuple(gaussian_kernel_1d(k, k / 6.0))
 
 
 @pytest.mark.parametrize(
     "shape,k",
-    [((3, 181, 333), 3), ((7056, 640), 3), ((6, 20), 25), ((1, 5), 129)],
+    [((3, 181, 333), 3), ((7056, 640), 3), ((1, 640), 3), ((2, 333), 3),
+     ((4, 3, 128), 3), ((3, 181, 333), 7), ((2, 100, 256), 9),
+     ((6, 20), 25), ((1, 5), 129)],
 )
 def test_rowconv_kernel_matches_plain(cuda, shape, k):
-    """Both axes; the kernel sums in the plain version's order (bit for
-    bit), periodic reflect-101 where the radius passes the axis."""
+    """Both axes, bit for bit: the kernels sum in the plain version's
+    order. W = 333 is no multiple of 4 (scalar loads); planes of 1-3 rows
+    and the radii past the axis reflect periodically; 25 and 129 taps take
+    the wide kernel."""
     g = torch.Generator(device=cuda)
     g.manual_seed(3)
     x = torch.rand(shape, generator=g, device=cuda) * 255.0
-    taps = (-0.5, 0.0, 0.5) if k == 3 else gaussian_kernel_1d(k, k / 6.0)
+    taps = _conv_taps(k)
     for along_cols in (False, True):
         before = rowconv_cuda.launches
         fn = rowconv_cuda.conv_cols if along_cols else rowconv_cuda.conv_rows
@@ -199,7 +267,40 @@ def test_rowconv_kernel_matches_plain(cuda, shape, k):
         torch.cuda.synchronize()
         assert rowconv_cuda.launches == before + 1
         ref = rowconv_cuda.conv_reference(x, taps, along_cols)
-        assert (out - ref).abs().max().item() <= 1e-5 * 255.0
+        assert torch.equal(out, ref), (along_cols,
+                                       (out - ref).abs().max().item())
+
+
+@pytest.mark.parametrize(
+    "shape,k",
+    [((7056, 2560), 3), ((3, 181, 333), 3), ((7056, 640), 3), ((1, 640), 3),
+     ((2, 333), 3), ((4, 3, 128), 3), ((6, 20), 3), ((2, 100, 256), 9),
+     ((5, 64), 5)],
+)
+def test_rowconv_pair_kernel_matches_plain(cuda, shape, k):
+    """Both passes from one read, bit for bit the plain pair and the
+    single-axis kernels: the path's canvas, W no multiple of 4, planes of
+    1-3 rows, SIFT's 6x20 octave and the widest radius it takes."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(7)
+    x = torch.rand(shape, generator=g, device=cuda) * 255.0
+    taps = _conv_taps(k)
+    before = rowconv_cuda.launches
+    rows, cols = rowconv_cuda.conv_rows_cols(x, taps)
+    torch.cuda.synchronize()
+    assert rowconv_cuda.launches == before + 1
+    ref_r, ref_c = rowconv_cuda.conv_rows_cols_reference(x, taps)
+    assert torch.equal(rows, ref_r) and torch.equal(cols, ref_c)
+    assert torch.equal(rows, rowconv_cuda.conv_rows(x, taps))
+    assert torch.equal(cols, rowconv_cuda.conv_cols(x, taps))
+
+
+def test_rowconv_pair_kernel_rejects_wide_radius(cuda):
+    x = torch.zeros((20, 20), device=cuda)
+    before = rowconv_cuda.launches
+    with pytest.raises(ValueError):
+        rowconv_cuda.conv_rows_cols(x, gaussian_kernel_1d(11, 2.0))
+    assert rowconv_cuda.launches == before
 
 
 def test_blur_kernel_past_the_edge(cuda):

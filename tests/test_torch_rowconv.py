@@ -1,7 +1,8 @@
-"""B4's plain version (vo_tpu_torch/ops/rowconv_cuda.py) against vo_tpu's
+"""B4's plain versions (vo_tpu_torch/ops/rowconv_cuda.py) against vo_tpu's
 Pallas row convolution in interpret mode and against the SIFT gradient
-maps, and reflect-101 past the edge of an axis (the repair that SIFT's
-smallest octaves need) against vo_tpu's jnp.pad.
+maps, the two-pass entry point against the single-axis ones, and
+reflect-101 past the edge of an axis (the repair that SIFT's smallest
+octaves need) against vo_tpu's jnp.pad.
 
 Tolerance: 1e-5 of max |input| against the Pallas kernel (its column pass
 is transpose, row pass, transpose; the sums are the same taps in the same
@@ -61,7 +62,9 @@ def test_grad_maps_match_sift(rng):
     and reflects only at the two ends, as vo_tpu's does."""
     g = rng.uniform(0, 255, (6, 24, 40)).astype(np.float32)
     jgx, jgy = (np.asarray(a) for a in jsift._grad_maps(jnp.asarray(g)))
+    before = rowconv_cuda.launches
     tgx, tgy = tsift._grad_maps(torch.from_numpy(g))
+    assert rowconv_cuda.launches == before  # CPU tensors: plain version only
     np.testing.assert_array_equal(tgx.numpy(), jgx.reshape(-1, 40))
     np.testing.assert_array_equal(tgy.numpy(), jgy.reshape(-1, 40))
     # a boundary row really reads its neighbour layer (row 24 = layer 1's
@@ -103,3 +106,34 @@ def test_rowconv_rejects_what_the_kernel_cannot_take():
         rowconv_cuda.conv_cols(torch.zeros(200, 200), np.ones(131) / 131)
     with pytest.raises(ValueError):
         rowconv_cuda.conv_rows(torch.zeros(8), DIFF)
+
+
+@pytest.mark.parametrize(
+    "shape,taps",
+    [
+        ((6 * 24, 40), DIFF),  # SIFT's layer-flattened stack
+        ((2, 6, 20), DIFF),  # planes of SIFT's smallest octave
+        ((3, 33, 45), tuple(gaussian_kernel_1d(5, 1.0))),
+        ((1, 2, 7), tuple(gaussian_kernel_1d(9, 2.0))),  # radius past both axes
+    ],
+)
+def test_conv_rows_cols_matches_single_axis(rng, shape, taps):
+    """Both passes from one call: bit for bit the two single-axis calls."""
+    x = torch.from_numpy(rng.uniform(0, 255, shape).astype(np.float32))
+    before = rowconv_cuda.launches
+    rows, cols = rowconv_cuda.conv_rows_cols(x, taps)
+    assert rowconv_cuda.launches == before  # CPU tensors: plain version only
+    np.testing.assert_array_equal(rows.numpy(),
+                                  rowconv_cuda.conv_rows(x, taps).numpy())
+    np.testing.assert_array_equal(cols.numpy(),
+                                  rowconv_cuda.conv_cols(x, taps).numpy())
+
+
+def test_conv_rows_cols_rejects_what_the_kernel_cannot_take():
+    x = torch.zeros(8, 8)
+    with pytest.raises(ValueError):  # radius above MAX_PAIR_RADIUS
+        rowconv_cuda.conv_rows_cols(x, gaussian_kernel_1d(11, 2.0))
+    with pytest.raises(ValueError):
+        rowconv_cuda.conv_rows_cols(x, (0.5, 0.5))
+    with pytest.raises(ValueError):
+        rowconv_cuda.conv_rows_cols(torch.zeros(8), DIFF)

@@ -175,21 +175,20 @@ def _grad_maps(g: torch.Tensor):
     """Central-difference gradients of a (L, H, W) Gaussian stack, taken
     over the layer-flattened (L*H, W) array by kernel B4: a layer's edge
     rows see the neighbouring layer's rows instead of reflected ones, as in
-    vo_tpu (outside the detection border either way). Returns the flat
-    (L*H, W) maps gx, gy."""
+    vo_tpu (outside the detection border either way). Both passes come
+    from one read of the stack. Returns the flat (L*H, W) maps gx, gy."""
     L, H, W = g.shape
-    flat = g.reshape(L * H, W)
-    return (rowconv_cuda.conv_rows(flat, DIFF_TAPS),
-            rowconv_cuda.conv_cols(flat, DIFF_TAPS))
+    return rowconv_cuda.conv_rows_cols(g.reshape(L * H, W), DIFF_TAPS)
 
 
 def _sample_grad_win(gx, gy, H: int, ls0, cy, cx, ys, xs, rpad: int, rect):
     """Nearest-pixel gradient samples at (N, P) positions (ys, xs) of
     layer ls0 from the flat (L*H, W) maps, clamped to each keypoint's
     octave rectangle. Kernel B3 cuts one (S, S) window, S = 2 rpad + 1,
-    around each keypoint's rounded centre (cy, cx) (zeros past the maps'
-    edge, which no sample reaches), and each sample is picked from it: the
-    same values as vo_tpu's padded crop and one-hot pick."""
+    around each keypoint's rounded centre (cy, cx) out of both maps in one
+    launch (zeros past the maps' edge, which no sample reaches), and each
+    sample is picked from it by one gather over both: the same values as
+    vo_tpu's padded crop and one-hot pick."""
     L = gx.shape[0] // H
     bx0, by0, bx1, by1 = rect
     yi = torch.minimum(torch.maximum(torch.round(ys).long(), by0[:, None]),
@@ -200,14 +199,13 @@ def _sample_grad_win(gx, gy, H: int, ls0, cy, cx, ys, xs, rpad: int, rect):
     cxi = torch.minimum(torch.maximum(torch.round(cx).long(), bx0), bx1 - 1)
     S = 2 * rpad + 1
     oy = ls0.clamp(0, L - 1) * H + cyi
-    wgx = crop_cuda.crop_windows(gx, cxi - rpad, oy - rpad, S)
-    wgy = crop_cuda.crop_windows(gy, cxi - rpad, oy - rpad, S)
+    win = crop_cuda.crop_windows_pair(gx, gy, cxi - rpad, oy - rpad, S)
     rely = (yi - cyi[:, None] + rpad).clamp(0, S - 1)
     relx = (xi - cxi[:, None] + rpad).clamp(0, S - 1)
     pick = rely * S + relx
     N = pick.shape[0]
-    return (wgx.reshape(N, S * S).gather(1, pick),
-            wgy.reshape(N, S * S).gather(1, pick))
+    sgx, sgy = win.reshape(2, N, S * S).gather(2, pick.expand(2, -1, -1))
+    return sgx, sgy
 
 
 def _max_sigma(cfg: SiftConfig, n_dog_layers: int) -> float:

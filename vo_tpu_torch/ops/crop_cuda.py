@@ -4,9 +4,12 @@
 Pallas `_crop_kernel`) and computes what vo_tpu/ops/lk.py:_crop_windows
 computes in f32: window k is img[oy[k] + r, ox[k] + c] for 0 <= r, c < S,
 with every sample outside the image 0. It takes any S up to 128 and any
-origin (the Pallas version needs S % 8 == 0 and 8-aligned rows). On a CUDA
-tensor it launches ``csrc/crop_windows.cu``; on a CPU tensor it runs
-`crop_windows_reference`. Both copy values, so they agree bit for bit.
+origin (the Pallas version needs S % 8 == 0 and 8-aligned rows).
+`crop_windows_pair` cuts two maps of one shape at the same origins in one
+launch (SIFT's gx and gy) and returns them stacked, (2, N, S, S). On a CUDA
+tensor both launch ``csrc/crop_windows.cu`` (nothing for N = 0); on a CPU
+tensor they run `crop_windows_reference` and `crop_windows_pair_reference`.
+A crop copies values, so kernel and plain version agree bit for bit.
 """
 
 from __future__ import annotations
@@ -44,37 +47,88 @@ def crop_windows_reference(img: torch.Tensor, ox: torch.Tensor,
                                                 device=img.device))
 
 
+def crop_windows_pair_reference(a: torch.Tensor, b: torch.Tensor,
+                                ox: torch.Tensor, oy: torch.Tensor,
+                                S: int) -> torch.Tensor:
+    """Plain PyTorch version of the pair: the two plain crops, stacked."""
+    return torch.stack([crop_windows_reference(a, ox, oy, S),
+                        crop_windows_reference(b, ox, oy, S)])
+
+
+def _check(what: str, maps, ox: torch.Tensor, oy: torch.Tensor, S: int):
+    if any(m.dim() != 2 for m in maps):
+        raise ValueError(f"{what}: maps must be (H, W)")
+    if any(m.shape != maps[0].shape for m in maps):
+        raise ValueError(f"{what}: maps must share one shape")
+    if not 0 < S <= MAX_S:
+        raise ValueError(f"{what}: S={S} outside 1..{MAX_S}")
+    N = ox.shape[0]
+    if ox.shape != (N,) or oy.shape != (N,):
+        raise ValueError(f"{what}: origins must be two (N,) tensors")
+    dev = maps[0].device
+    if any(t.device != dev for t in (*maps, ox, oy)):
+        raise ValueError(f"{what}: all tensors must share one device")
+    if dev.type == "cpu":
+        return
+    if dev.type != "cuda":
+        raise RuntimeError(f"{what}: no kernel for {dev}")
+    if any(m.dtype != torch.float32 for m in maps):
+        raise TypeError(f"{what}: needs float32, got "
+                        f"{[m.dtype for m in maps]}")
+
+
+def _launch(maps, ox: torch.Tensor, oy: torch.Tensor, S: int) -> torch.Tensor:
+    """Launch B3 over one or two maps: (len(maps), N, S, S), each map's
+    windows starting 16 bytes aligned (the kernel stores float4s)."""
+    global launches
+    H, W = maps[0].shape
+    N = ox.shape[0]
+    M = N * S * S
+    Mp = (M + 3) // 4 * 4
+    buf = torch.empty(len(maps) * Mp, dtype=torch.float32,
+                      device=maps[0].device)
+    out = buf.as_strided((len(maps), N, S, S), (Mp, S * S, S, 1))
+    if N == 0:
+        return out
+    xs = [m.contiguous() for m in maps]
+    ox32 = ox.to(torch.int32).contiguous()
+    oy32 = oy.to(torch.int32).contiguous()
+    lib = _lib()
+    stream = _build.stream_ptr(maps[0].device)
+    if len(maps) == 1:
+        code = lib.crop_windows_f32(xs[0].data_ptr(), H, W, ox32.data_ptr(),
+                                    oy32.data_ptr(), N, S, buf.data_ptr(),
+                                    stream)
+        what = "crop_windows_f32"
+    else:
+        code = lib.crop_windows_pair_f32(
+            xs[0].data_ptr(), xs[1].data_ptr(), H, W, ox32.data_ptr(),
+            oy32.data_ptr(), N, S, buf.data_ptr(), buf[Mp:].data_ptr(),
+            stream)
+        what = "crop_windows_pair_f32"
+    _build.check(lib, code, what)
+    launches += 1
+    return out
+
+
 def crop_windows(img: torch.Tensor, ox: torch.Tensor, oy: torch.Tensor,
                  S: int) -> torch.Tensor:
     """(N, S, S) crops of img (H, W) f32 at integer origins (ox, oy) (N,)."""
-    global launches
-    if img.dim() != 2:
-        raise ValueError("crop_windows: img must be (H, W)")
-    if not 0 < S <= MAX_S:
-        raise ValueError(f"crop_windows: S={S} outside 1..{MAX_S}")
-    N = ox.shape[0]
-    if ox.shape != (N,) or oy.shape != (N,):
-        raise ValueError("crop_windows: origins must be two (N,) tensors")
-    if ox.device != img.device or oy.device != img.device:
-        raise ValueError("crop_windows: all tensors must share one device")
+    _check("crop_windows", (img,), ox, oy, S)
     if img.device.type == "cpu":
         return crop_windows_reference(img, ox, oy, S)
-    if img.device.type != "cuda":
-        raise RuntimeError(f"crop_windows: no kernel for {img.device}")
-    if img.dtype != torch.float32:
-        raise TypeError(f"crop_windows: needs float32, got {img.dtype}")
-    H, W = img.shape
-    x = img.contiguous()
-    ox32 = ox.to(torch.int32).contiguous()
-    oy32 = oy.to(torch.int32).contiguous()
-    out = torch.empty((N, S, S), dtype=torch.float32, device=img.device)
-    lib = _lib()
-    code = lib.crop_windows_f32(x.data_ptr(), H, W, ox32.data_ptr(),
-                                oy32.data_ptr(), N, S, out.data_ptr(),
-                                _build.stream_ptr(img.device))
-    _build.check(lib, code, "crop_windows_f32")
-    launches += 1
-    return out
+    return _launch((img,), ox, oy, S)[0]
+
+
+def crop_windows_pair(a: torch.Tensor, b: torch.Tensor, ox: torch.Tensor,
+                      oy: torch.Tensor, S: int) -> torch.Tensor:
+    """(2, N, S, S): the crops of a and of b, two (H, W) f32 maps, at the
+    same integer origins (ox, oy) (N,), in one launch. Equal to stacking
+    `crop_windows(a, ...)` and `crop_windows(b, ...)`."""
+    _check("crop_windows_pair", (a, b), ox, oy, S)
+    if a.device.type == "cpu":
+        return crop_windows_pair_reference(a, b, ox, oy, S)
+    return _launch((a, b), ox, oy, S)
 
 
 def _lib():
@@ -83,5 +137,8 @@ def _lib():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.crop_windows_f32.argtypes = [p, i, i, p, p, i, i, p, p]
         lib.crop_windows_f32.restype = ctypes.c_int
+        lib.crop_windows_pair_f32.argtypes = [p, p, i, i, p, p, i, i, p, p,
+                                              p]
+        lib.crop_windows_pair_f32.restype = ctypes.c_int
         lib._typed = True
     return lib
