@@ -28,18 +28,24 @@ Phases, each of which raises on failure (the script then exits non-zero):
    iterations), B2 per SIFT octave (beside the octave's byte bound), B3
    per window size and B4 per entry point (each beside its byte bound);
 3. pipelines: tracking_orb over a 60-frame synthetic KITTI-shape sequence
-   whose frame 45 is textureless (forcing a re-detect), then tracking_sift
-   over the same sequence without the blank frame (its tracks decay below
-   150 and it re-detects on its own), each with the launch counters zeroed
-   just before and read just after; fps, ATE against its limit, re-detects
-   and launches (on tracking_sift two B3 launches per B4 launch: one
-   detect crops both maps at two window sizes and takes both gradients in
-   one pass); SIFT detect time;
+   whose frame 45 is textureless (forcing a re-detect), then tracking_sift,
+   matching_orb, matching_sift, matching_orb_3d_correspond and
+   tracking_sift_ba over the same sequence without the blank frame
+   (tracking_sift's tracks decay below 150 and it re-detects on its own;
+   the matching paths detect every frame and never re-detect;
+   tracking_sift_ba solves its 5-frame window every 10 frames), each after
+   a warm-up (through one BA solve for tracking_sift_ba) and with the
+   launch counters zeroed just before and read just after; fps, ATE
+   against its limit, re-detects, launches and median associations, and
+   for tracking_sift_ba the BA runs, poses accepted and costs (on
+   tracking_sift two B3 launches per B4 launch, on matching_sift one B4
+   and two B3 per frame); SIFT detect time and window BA time per solve;
 4. plain paths: tracking_orb's first 5 steps through the plain versions,
    each from the kernel path's state with the same RANSAC draws, beside
    the pose's own response to a 1e-4 px jitter of the tracked points, then
    5 free-running steps of each path; SIFT detect on frame 0 through the
-   kernels and through the plain versions of B2, B3 and B4.
+   kernels and through the plain versions of B2, B3 and B4; matching_orb's
+   first 3 steps through the plain B2, held as tracking_orb's.
 
 Output: the card's name and power limit first, a JSON line of per-kernel
 results second to last, and {"ok": true, "device": {...}} last.
@@ -71,6 +77,15 @@ ORB_ATE_LIMIT = 0.10
 # port is held to the larger of 10 % and 1.25x that.
 SIFT_REF_ATE = 0.1218
 SIFT_ATE_LIMIT = max(0.10, 1.25 * SIFT_REF_ATE)
+# vo_tpu on the same 60 frames without the blank frame, RANSAC seed 0
+# (scripts/eval_ref_matching.py, JAX on the CPU of an H100 host; seeds 1
+# and 2 give 11.54 and 33.42 % for matching_orb, 18.77 and 14.52 % for
+# matching_sift, 8.62 and 9.55 % for matching_orb_3d_correspond, 6.25 and
+# 8.61 % for tracking_sift_ba). Each path is held to the larger of 10 % and
+# 1.25x its figure, the rule of tracking_sift.
+REF_ATE = {"matching_orb": 0.2451, "matching_sift": 0.0933,
+           "matching_orb_3d_correspond": 0.1954, "tracking_sift_ba": 0.1248}
+ATE_LIMIT = {k: max(0.10, 1.25 * v) for k, v in REF_ATE.items()}
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12  # f32 outside the tensor cores, H100 SXM data sheet
 EPS32 = float(np.finfo(np.float32).eps)
@@ -181,13 +196,14 @@ class _Staged:
 
 
 def _capture(module, name):
-    """Patch module.name with a pass-through that records its arguments."""
+    """Patch module.name with a pass-through that records its arguments
+    (keyword arguments after the positional ones, in call order)."""
     calls = []
     real = getattr(module, name)
 
-    def spy(*args):
-        calls.append(args)
-        return real(*args)
+    def spy(*args, **kwargs):
+        calls.append(args + tuple(kwargs.values()))
+        return real(*args, **kwargs)
 
     return mock.patch.object(module, name, spy), calls
 
@@ -483,9 +499,12 @@ def _kernel_modules() -> dict:
             "crop_windows": crop_cuda, "row_conv": rowconv_cuda}
 
 
-def run_pipeline(name, seq, device, ate_limit, kernels, note) -> dict:
-    """One preset end to end after a warm-up run; returns the launch counts
-    of the measured run (counters zeroed just before, read just after)."""
+def run_pipeline(name, seq, device, ate_limit, kernels, note,
+                 redetects: bool = True, warm_steps: int = 3) -> dict:
+    """One preset end to end after a warm-up of `warm_steps` steps; returns
+    the launch counts of the measured run (counters zeroed just before,
+    read just after). A path that must re-detect (`redetects`) fails
+    without one; the matching paths detect every frame and have none."""
     import torch
 
     from vo_tpu_torch.runtime.presets import get_preset
@@ -494,7 +513,7 @@ def run_pipeline(name, seq, device, ate_limit, kernels, note) -> dict:
     preset = get_preset(name)
     warm = preset.build(seq.K)  # default device: cuda
     state = warm.init(seq.frame(0))
-    for i in range(1, 4):
+    for i in range(1, warm_steps + 1):
         state, _ = warm.step(state, seq.frame(i))
     torch.cuda.synchronize()
 
@@ -512,16 +531,26 @@ def run_pipeline(name, seq, device, ate_limit, kernels, note) -> dict:
     ate, _ = compute_ate(gt, est)
     rpe, _ = compute_rpe(gt, est)
     path = float(np.linalg.norm(np.diff(gt, axis=0), axis=1).sum())
-    redetects = [i for i, s in enumerate(stats) if s.get("fallback")]
+    redetected = [i for i, s in enumerate(stats) if s.get("fallback")]
     _log(f"pipeline {name} {SHAPE[0]}x{SHAPE[1]}, {len(seq)} frames, "
          f"{note}: {n_steps / dt:.2f} fps (host clock over init + {n_steps} "
          f"steps, closed by synchronize), ATE {ate:.4f} on a {path:.2f} path "
          f"({100 * ate / path:.2f} %, limit {100 * ate_limit:.2f} %), RPE "
-         f"{rpe:.4f}, re-detects at steps {redetects}, launches {counts}, "
+         f"{rpe:.4f}, re-detects at steps {redetected}, launches {counts}, "
          f"median n_assoc {int(np.median([s['n_assoc'] for s in stats[1:]]))}")
+    ba = [(i, s) for i, s in enumerate(stats) if s.get("ba_ran")]
+    if preset.window is not None:
+        _log(f"pipeline {name} BA: {len(ba)} runs at steps "
+             f"{[i for i, _ in ba]}, poses accepted "
+             f"{[s['ba_accepted'] for _, s in ba]}, cost0 -> cost "
+             f"{[(round(s['ba_cost0'], 1), round(s['ba_cost'], 1)) for _, s in ba]}"
+             f", landmarks {[s['ba_landmarks'] for _, s in ba]}")
+        if not ba or not any(s["ba_accepted"] for _, s in ba):
+            raise RuntimeError(f"{name}: BA ran {len(ba)} times and "
+                               f"accepted no pose")
     if not np.isfinite(est).all():
         raise RuntimeError(f"{name}: non-finite trajectory")
-    if not redetects:
+    if redetects and not redetected:
         raise RuntimeError(f"{name}: no re-detect")
     if ate >= ate_limit * path:
         raise RuntimeError(f"{name}: ATE {ate:.4f} >= {ate_limit:.4f} of "
@@ -529,6 +558,47 @@ def run_pipeline(name, seq, device, ate_limit, kernels, note) -> dict:
     if min(counts[k] for k in kernels) <= 0:
         raise RuntimeError(f"{name}: a kernel was not launched: {counts}")
     return counts
+
+
+def time_window_ba(seq, device, reps: int = 5) -> None:
+    """Host milliseconds per windowed BA solve of tracking_sift_ba at
+    KITTI shape (each call closed by synchronize), on the window of its
+    first BA step, after one warm-up call."""
+    import torch
+
+    from vo_tpu_torch.models import vo_ba
+    from vo_tpu_torch.runtime.presets import get_preset
+
+    preset = get_preset("tracking_sift_ba")
+    vo = preset.build(seq.K, device=device)
+    spy, calls = _capture(vo_ba, "run_window_ba")
+    state = vo.init(seq.frame(0))
+    with spy:
+        for i in range(1, preset.window.ba_every + 1):
+            state, out = vo.step(state, seq.frame(i))
+    if len(calls) != 1:
+        raise RuntimeError(f"expected one BA solve, captured {len(calls)}")
+    win, K, wcfg, lmap = calls[0]
+    vo_ba.run_window_ba(win, K, wcfg, lmap=lmap)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        vo_ba.run_window_ba(win, K, wcfg, lmap=lmap)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / reps * 1e3
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        vo_ba.run_window_ba(win, K, wcfg, lmap=lmap)
+        torch.cuda.synchronize()
+    ev = [e for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_ms = sum(e.device_time for e in ev) / 1e3
+    _log(f"window BA (tracking_sift_ba, window {win.obs.shape[0]} x "
+         f"{win.obs.shape[1]} slots, {int(out.ba_landmarks)} landmarks, "
+         f"{wcfg.ba.max_iters} LM steps): {ms:.1f} ms per solve (host "
+         f"clock, synchronized); by torch.profiler {len(ev)} device "
+         f"operations, {dev_ms:.2f} ms of device time per solve")
 
 
 def time_sift_detect(seq, device, reps: int = 5) -> None:
@@ -1045,6 +1115,74 @@ def compare_plain_path(seq, device) -> None:
         raise RuntimeError(f"kernel and plain paths disagree: {failed}")
 
 
+def compare_matching_plain(seq, device, steps: int = 3) -> None:
+    """matching_orb's first `steps` steps through the plain version of B2
+    (its one kernel: the Harris blur of every detect), each from the
+    kernel path's state with the same RANSAC draws, beside the pose's
+    response to a 1e-4 px jitter of the previous frame's keypoints and the
+    ground truth. The keypoints of frame 0 and the associations must be
+    the same and the step within POSE_TOLERANCE of the plain path's. The
+    gap to the ground truth is printed, not held: one matching_orb step
+    can miss the truth's translation direction by tens of degrees on
+    these frames, and its 1e-4 px jitter moves it as far (an H100 run;
+    vo_tpu's own ATE here is 24.51 %)."""
+    import torch
+
+    from vo_tpu_torch.ops import blur_cuda
+    from vo_tpu_torch.runtime.presets import get_preset
+
+    preset = get_preset("matching_orb")
+    plain = mock.patch.object(blur_cuda, "separable_blur",
+                              blur_cuda.separable_blur_reference)
+
+    def step_from(vo, state, gen_state, i, pts=None):
+        gen = torch.Generator(device=device)
+        gen.set_state(gen_state)
+        state = state._replace(gen=gen)
+        if pts is not None:
+            state = state._replace(pts=pts)
+        _, out = vo.step(state, seq.frame(i))
+        return out.pose.cpu().numpy(), int(out.n_assoc)
+
+    def within(gap, limits):
+        return all((abs(gap[k] - 1.0) if k == "len" else gap[k]) < v
+                   for k, v in limits.items())
+
+    kvo, pvo = (preset.build(seq.K, device=device) for _ in range(2))
+    jitter_gen = torch.Generator(device=device)
+    jitter_gen.manual_seed(2)
+    state = kvo.init(seq.frame(0))
+    with plain:
+        pstate = pvo.init(seq.frame(0))
+    same_init = bool(torch.equal(pstate.pts, state.pts))
+    failed = [] if same_init else ["init keypoints"]
+    for i in range(1, steps + 1):
+        P0 = state.pose.cpu().numpy()
+        gen_state = state.gen.get_state()
+        nxt, out = kvo.step(state, seq.frame(i))
+        Pk, nk = out.pose.cpu().numpy(), int(out.n_assoc)
+        noise = torch.randn(state.pts.shape, generator=jitter_gen,
+                            device=device) * 1e-4
+        with plain:
+            Pp, np_ = step_from(pvo, state, gen_state, i)
+            Pj, _ = step_from(pvo, state, gen_state, i, state.pts + noise)
+        g = _rel(seq.poses[i - 1], seq.poses[i])
+        kp = _pose_gap(_rel(P0, Pk), _rel(P0, Pp))
+        jit = _pose_gap(_rel(P0, Pp), _rel(P0, Pj))
+        gk = _pose_gap(g, _rel(P0, Pk))
+        _log(f"matching_orb step {i} from one state: kernel vs plain {kp}; "
+             f"plain vs plain with 1e-4 px jitter {jit}; kernel vs ground "
+             f"truth {gk}; n_assoc {nk} vs {np_}; init keypoints the same: "
+             f"{same_init}; tolerance: n_assoc equal, {POSE_TOLERANCE}")
+        if nk != np_ or not within(kp, POSE_TOLERANCE):
+            failed.append(f"step {i}")
+        state = nxt
+    torch.cuda.synchronize()
+    if failed:
+        raise RuntimeError(f"matching_orb kernel and plain paths disagree: "
+                           f"{failed}")
+
+
 def main() -> int:
     try:
         import torch
@@ -1112,9 +1250,30 @@ def main() -> int:
     if sift["crop_windows"] != 2 * sift["row_conv"]:
         raise RuntimeError(f"tracking_sift: expected two B3 launches per B4 "
                            f"launch (one per window size and detect): {sift}")
+    for name, path_kernels in (
+            ("matching_orb", ("separable_blur",)),
+            ("matching_sift", ("separable_blur", "crop_windows", "row_conv")),
+            ("matching_orb_3d_correspond", ("separable_blur",))):
+        counts[name] = run_pipeline(name, clean, device, ATE_LIMIT[name],
+                                    path_kernels, "no blank frame",
+                                    redetects=False)
+    ms = counts["matching_sift"]
+    # one SIFT detect per frame: one B4 launch and two B3 launches each
+    if not (ms["row_conv"] == N_FRAMES
+            and ms["crop_windows"] == 2 * N_FRAMES
+            and ms["separable_blur"] % N_FRAMES == 0):
+        raise RuntimeError(f"matching_sift: expected per frame one B4, two B3"
+                           f" and a fixed number of B2 launches: {ms}")
+    # warmed up through one BA solve (ba_every steps with a full window),
+    # so that the first solve's library set-up is not timed
+    counts["tracking_sift_ba"] = run_pipeline(
+        "tracking_sift_ba", clean, device, ATE_LIMIT["tracking_sift_ba"],
+        tuple(_kernel_modules()), "no blank frame", warm_steps=10)
     time_sift_detect(clean, device)
+    time_window_ba(clean, device)
     compare_plain_path(seq, device)
     compare_sift_plain(clean, device)
+    compare_matching_plain(clean, device)
 
     for k in kernels:
         k["launches"] = counts["tracking_sift"][k["name"]]

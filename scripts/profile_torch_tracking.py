@@ -3,11 +3,12 @@
     python3 scripts/profile_torch_tracking.py [--preset tracking_orb]
         [--steps 10] [--detect] [--trace PATH]
 
-Builds the preset of vo_tpu_torch (tracking_orb or tracking_sift) at KITTI
-shape (376x1241) on a synthetic sequence staged on the card, runs warm-up
-steps, then profiles `--steps` tracking steps with torch.profiler (with
-`--detect`, that many calls of the preset's detector, the work of a
-re-detect step). Prints one JSON line with the wall time per step (host
+Builds a preset of vo_tpu_torch (tracking_orb by default; any of the
+eight) at KITTI shape (376x1241) on a synthetic sequence staged on the
+card, runs 4 warm-up steps, then profiles the next `--steps` steps with
+torch.profiler (with `--detect`, that many calls of the preset's
+detector, the work of a re-detect step). A BA preset's 10th frame, inside
+the default window of steps 5-14, solves its window. Prints one JSON line with the wall time per step (host
 clock, closed by synchronize), the device-busy share (summed CUDA kernel
 time over the profiled wall time), CUDA kernel launches per step, and the
 top operators by self CPU time and by self device time. `--trace` also
@@ -26,9 +27,11 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def main() -> int:
+    from vo_tpu_torch.runtime.presets import PRESETS
+
     ap = argparse.ArgumentParser()
     ap.add_argument("--preset", default="tracking_orb",
-                    choices=["tracking_orb", "tracking_sift"])
+                    choices=sorted(PRESETS))
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--detect", action="store_true")
     ap.add_argument("--trace", default=None)
@@ -77,7 +80,7 @@ def main() -> int:
     print(json.dumps({
         "device": torch.cuda.get_device_name(0),
         "preset": args.preset,
-        "profiled": "detect" if args.detect else "tracking step",
+        "profiled": "detect" if args.detect else "step",
         "steps": steps,
         "ms_per_step": 1e3 * wall / steps,
         "device_busy_share": busy_us * 1e-6 / wall,

@@ -1,5 +1,6 @@
 """Card-only tests of the port: each CUDA kernel against its plain version
-on the card, and the tracking pipelines through the kernels.
+on the card, the tracking pipelines through the kernels, and one BA solve
+and one matching step on the card against the same on the CPU.
 
 They need a CUDA device and skip without one. On a machine with a card
 (which need not have jax) run them without the suite's conftest:
@@ -325,3 +326,131 @@ def test_sift_pipeline_runs_through_the_kernels(cuda):
     assert all(m.launches > b for m, b in zip(mods, before))
     assert np.isfinite(est).all()
     assert any(s["fallback"] for s in stats[1:])
+
+
+def _ba_window(L=64, seed=0):
+    """A 5-camera window (tests/test_ba.py's make_ba_problem, with numpy
+    and the port's exp_so3): cameras moving along +z, points 15-60 m
+    ahead, 1 px of observation noise, poses and points perturbed."""
+    from vo_tpu_torch.geometry.se3 import exp_so3
+
+    rng = np.random.default_rng(seed)
+    K = np.array([[300.0, 0, 160.0], [0, 300.0, 120.0], [0, 0, 1.0]])
+    X = np.stack([rng.uniform(-20, 20, L), rng.uniform(-5, 5, L),
+                  rng.uniform(15, 60, L)], 1)
+    poses = np.zeros((5, 6))
+    for i in range(5):
+        poses[i, :3] = [0, 0.01 * i, 0]
+        poses[i, 3:] = [0.1 * i, 0, float(i)]
+    obs = []
+    for p in poses:
+        R = exp_so3(torch.tensor(p[:3], dtype=torch.float32)).numpy()
+        pc = X @ R.T + p[3:]
+        obs.append(pc[:, :2] / pc[:, 2:3] * [300.0, 300.0] + [160.0, 120.0])
+    obs = np.stack(obs) + rng.normal(0, 1.0, (5, L, 2))
+    poses0 = poses.copy()
+    poses0[1:] += rng.normal(0, 0.02, (4, 6))
+    X0 = X + rng.normal(0, 0.5, X.shape)
+    return [torch.tensor(a, dtype=torch.float32) for a in (poses0, X0, obs, K)]
+
+
+def test_bundle_adjust_on_card(cuda):
+    """One BA solve on the card and on the CPU from the same inputs, held
+    as tests/test_torch_ba.py holds the port to vo_tpu: identical accept
+    trace, cost rtol 1e-4, poses atol 1e-4, points 1e-3 of their depth."""
+    from vo_tpu_torch.ba.schur import bundle_adjust
+
+    p0, X0, obs, K = _ba_window()
+    W, L = obs.shape[:2]
+    args = (p0, X0, obs, torch.ones((W, L), dtype=torch.bool),
+            torch.ones(L, dtype=torch.bool), K)
+    ref, rtr = bundle_adjust(*args, return_trace=True)
+    got, gtr = bundle_adjust(*(a.to(cuda) for a in args), return_trace=True)
+    assert torch.equal(gtr[0].cpu(), rtr[0])
+    assert abs(float(got.cost) - float(ref.cost)) <= 1e-4 * float(ref.cost)
+    assert float(got.cost) < 0.1 * float(got.cost0)
+    assert (got.poses.cpu() - ref.poses).abs().max() <= 1e-4
+    gap = (got.points.cpu() - ref.points).abs().amax(1)
+    assert (gap <= 1e-3 * ref.points[:, 2].abs()).all()
+
+
+@pytest.mark.parametrize("detector", ["orb", "sift"])
+def test_matching_step_on_card(cuda, detector):
+    """One _matching_core step on the card and on the CPU from the same
+    features (tests/torch_parity.py's scene) and RANSAC draws: the same
+    matches and counts, and the pose within 3x the CPU step's own response
+    to a 1e-4 px jitter of the points (plus 1e-4), as
+    tests/test_torch_matching.py holds the port to vo_tpu."""
+    from torch_parity import K_SCENE, scene_features
+    from vo_tpu_torch.models import vo as tvo
+
+    frames, _ = scene_features(detector, n_frames=2)
+    cfg = tvo.VOConfig(detector=detector, scale_mode="unmatched",
+                       ransac_iters=64)
+    K = torch.tensor(K_SCENE, dtype=torch.float32)
+    slot = torch.from_numpy(np.random.default_rng(3).integers(
+        0, 200, (64, 5)))
+
+    def step(dev, first=frames[0], second=frames[1]):
+        f0 = tuple(torch.from_numpy(np.array(a)).to(dev) for a in first)
+        f1 = tuple(torch.from_numpy(np.array(a)).to(dev) for a in second)
+        st = tvo._matching_init(f0, torch.Generator(device=dev), cfg)
+        m = tvo.match_features(st.desc, f1[1], st.valid, f1[2], cfg)
+        _, out = tvo._matching_core(st, f1, K.to(dev), cfg, slot=slot)
+        return m, out
+
+    rng = np.random.default_rng(1)
+    mc, oc = step("cpu")
+    mg, og = step(cuda)
+    assert torch.equal(mg.valid.cpu(), mc.valid)
+    assert torch.equal(mg.idx.cpu()[mc.valid], mc.idx[mc.valid])
+    assert int(og.n_assoc) == int(oc.n_assoc) > 200
+    spread = 0.0
+    for _ in range(3):
+        moved = [(f[0] + rng.normal(0, 1e-4, f[0].shape).astype(np.float32),)
+                 + f[1:] for f in frames]
+        spread = max(spread, (step("cpu", *moved)[1].pose - oc.pose)
+                     .abs().max().item())
+    gap = (og.pose.cpu() - oc.pose).abs().max().item()
+    assert gap <= 3.0 * spread + 1e-4, (gap, spread)
+
+
+@pytest.mark.parametrize("name", ["tracking_sift_ba", "tracking_orb_ba"])
+def test_tracking_ba_pipeline_runs_through_the_kernels(cuda, name):
+    """The BA presets on the card, as tests/test_torch_presets.py runs
+    tracking_sift_ba on the CPU (its small configuration: 500 features,
+    sync gate): 24 frames, a 4-frame window solved every 8 frames; the
+    path's kernels launch and each solve lowers its cost. tracking_sift_ba
+    solves at frames 8 and 16 and accepts poses (4 and 0 over RANSAC seeds
+    0-5 on the CPU). tracking_orb_ba at this size is at the mercy of its
+    RANSAC draws: over seeds 0-5 on the CPU it solved 1-2 windows and
+    accepted 0-4 poses each, and one run on the card accepted none, so
+    only the solves are held there."""
+    import dataclasses
+
+    from vo_tpu_torch.ba.window import WindowConfig
+
+    seq = SyntheticSequence.generate(n_frames=24, shape=(240, 320),
+                                     n_points=3000)
+    from vo_tpu_torch.frontend.orb import OrbConfig
+    from vo_tpu_torch.frontend.sift import SiftConfig
+
+    preset = get_preset(name)
+    sift = preset.config.detector == "sift"
+    preset = dataclasses.replace(  # tests/test_torch_presets.py's small preset
+        preset, window=WindowConfig(window_size=4, ba_every=8),
+        config=preset.config._replace(
+            orb=OrbConfig(nfeatures=500, n_levels=4),
+            sift=SiftConfig(nfeatures=500), fallback_gate="sync",
+            min_tracked=60 if sift else 150))
+    vo = preset.build(seq.K)
+    mods = ((lk_cuda, blur_cuda, crop_cuda, rowconv_cuda)
+            if name == "tracking_sift_ba" else (lk_cuda, blur_cuda))
+    before = [m.launches for m in mods]
+    est, _, _, stats = preset.run(seq, vo)
+    assert all(m.launches > b for m, b in zip(mods, before))
+    assert np.isfinite(est).all()
+    ran = [s for s in stats if s.get("ba_ran")]
+    assert ran and all(s["ba_cost"] < s["ba_cost0"] for s in ran)
+    if name == "tracking_sift_ba":
+        assert len(ran) == 2 and sum(s["ba_accepted"] for s in ran) > 0

@@ -10,8 +10,10 @@ import pytest
 import torch
 
 import vo_tpu_torch
-from vo_tpu_torch.models.vo import TrackingVO
-from vo_tpu_torch.runtime.presets import get_preset
+from vo_tpu_torch.models.vo import MatchingVO, TrackingVO
+from vo_tpu_torch.models.vo_3frame import ThreeFrameVO
+from vo_tpu_torch.models.vo_ba import TrackingBAVO
+from vo_tpu_torch.runtime.presets import PRESETS, get_preset
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -46,9 +48,13 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         vo_tpu_torch.resolve_device()
     with pytest.raises(RuntimeError, match="CUDA"):
         TrackingVO(K)
-    with pytest.raises(RuntimeError, match="CUDA"):
-        get_preset("tracking_orb").build(K)
-    assert TrackingVO(K, device="cpu").device.type == "cpu"
+    for name in PRESETS:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            get_preset(name).build(K)
+    for cls in (TrackingVO, MatchingVO, ThreeFrameVO, TrackingBAVO):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cls(K)
+        assert cls(K, device="cpu").device.type == "cpu"
 
 
 def test_tf32_is_off():

@@ -1,15 +1,18 @@
 """vo_tpu_torch — the monocular VO pipeline in PyTorch, for one NVIDIA H100.
 
 A port of ``vo_tpu`` (JAX) that keeps its layout and names: ``ops`` (pyramid,
-LK, FAST, NMS, Harris, BRIEF, Hamming), ``geometry`` (5-point RANSAC, pose,
-depths, scale), ``frontend`` (ORB), ``models`` (``TrackingVO``), ``runtime``
-(presets), ``data`` (synthetic sequences) and ``utils`` (ATE/RPE).
+LK, FAST, NMS, Harris, BRIEF, Hamming, scale space), ``geometry`` (5-point
+RANSAC, pose, triangulation, scale, PnP), ``frontend`` (ORB, SIFT), ``ba``
+(windowed bundle adjustment), ``models`` (``TrackingVO``, ``MatchingVO``,
+``ThreeFrameVO``, ``TrackingBAVO``), ``runtime`` (presets), ``data``
+(synthetic sequences) and ``utils`` (ATE/RPE).
 
-The two kernels that ``vo_tpu`` wrote in Pallas for the TPU on this path are
+The four kernels that ``vo_tpu`` wrote in Pallas for the TPU are
 hand-written CUDA C++ under ``csrc/``, built with ``nvcc`` at first use
-(``_build.py``): the LK level solve (``ops/lk_cuda.py``) and the separable
-blur (``ops/blur_cuda.py``). Each wrapper runs its plain PyTorch version on a
-CPU tensor and its kernel on a CUDA tensor.
+(``_build.py``): the LK level solve (``ops/lk_cuda.py``), the separable
+blur (``ops/blur_cuda.py``), the window crop (``ops/crop_cuda.py``) and
+the 1-D correlation (``ops/rowconv_cuda.py``). Each wrapper runs its plain
+PyTorch version on a CPU tensor and its kernel on a CUDA tensor.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """

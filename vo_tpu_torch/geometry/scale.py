@@ -20,6 +20,8 @@ EPS = 1e-6
 def masked_median(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Upper median (index count//2 of the ascending sort) over masked
     entries; 1.0 when none are valid."""
+    if x.shape[0] == 0:
+        return x.new_ones(())
     order = torch.sort(torch.where(mask, x, torch.finfo(x.dtype).max)).values
     count = mask.sum()
     idx = torch.clamp(count // 2, 0, x.shape[0] - 1).reshape(1)
@@ -66,4 +68,21 @@ def relative_scale_matched(prev_pts: torch.Tensor, cur_pts: torch.Tensor,
     dp, vp = consecutive_distances(prev_pts, valid)
     dc, _ = consecutive_distances(cur_pts, valid)
     s = masked_median(dp / (dc + EPS), vp)
+    return torch.clamp(s, SCALE_MIN, SCALE_MAX)
+
+
+def relative_scale_unmatched(prev_pts: torch.Tensor, prev_valid: torch.Tensor,
+                             cur_pts: torch.Tensor, cur_valid: torch.Tensor
+                             ) -> torch.Tensor:
+    """Scale from unmatched clouds truncated to the common capacity (the
+    matching drivers, feature_matching.cpp:251-263): the i-th valid prev
+    point pairs with the i-th valid cur point."""
+    pp, pv = compact_valid(prev_pts, prev_valid)
+    cp, cv = compact_valid(cur_pts, cur_valid)
+    n = min(pp.shape[0], cp.shape[0])
+    pp, pv, cp, cv = pp[:n], pv[:n], cp[:n], cv[:n]
+    dp = torch.linalg.vector_norm(pp[1:] - pp[:-1], dim=1)
+    dc = torch.linalg.vector_norm(cp[1:] - cp[:-1], dim=1)
+    pair_ok = pv[1:] & pv[:-1] & cv[1:] & cv[:-1]
+    s = masked_median(dp / (dc + EPS), pair_ok)
     return torch.clamp(s, SCALE_MIN, SCALE_MAX)

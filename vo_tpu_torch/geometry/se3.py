@@ -31,6 +31,30 @@ def exp_so3(w: torch.Tensor) -> torch.Tensor:
     return torch.where(theta < 1e-6, I + hat(w), R)
 
 
+def exp_so3_jacobian(w: torch.Tensor) -> torch.Tensor:
+    """(..., 3) -> (..., 3, 3, 3) with dR[..., a, b, k] = d R_ab / d w_k,
+    in closed form: the derivative of `exp_so3`'s own formula R = I +
+    sin(t) K + (1 - cos(t)) K^2, K = hat(n), n = w / t, and of its
+    small-angle branch I + hat(w) below t = 1e-6 (vo_tpu takes jax.jacfwd
+    of the same function)."""
+    theta = torch.linalg.vector_norm(w, dim=-1, keepdim=True)  # (..., 1)
+    t = theta[..., None]  # (..., 1, 1)
+    n = w / torch.clamp(theta, min=1e-12)
+    K = hat(n)
+    I = torch.eye(3, dtype=w.dtype, device=w.device)
+    # dn[..., i, k] = d n_i / d w_k = (I - n n^T) / t
+    dn = (I - n[..., :, None] * n[..., None, :]) / torch.clamp(t, min=1e-12)
+    H = hat(dn.transpose(-1, -2))  # (..., k, 3, 3): hat(d n / d w_k)
+    s, c = torch.sin(t)[..., None], torch.cos(t)[..., None]
+    nk = n[..., :, None, None]  # (..., k, 1, 1)
+    Kk = K[..., None, :, :]
+    d = (c * nk * Kk + s * H + s * nk * (K @ K)[..., None, :, :]
+         + (1.0 - c) * (H @ Kk + Kk @ H))
+    small = hat(I).expand(d.shape)  # d(I + hat(w)) / d w_k = hat(e_k)
+    d = torch.where(t[..., None] < 1e-6, small, d)
+    return d.movedim(-3, -1)
+
+
 def log_so3(R: torch.Tensor) -> torch.Tensor:
     """Rotation matrix (..., 3, 3) -> angle-axis (..., 3)."""
     trace = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]

@@ -1,12 +1,14 @@
-"""End-to-end monocular VO: the tracking pipeline (port of the tracking
-half of vo_tpu/models/vo.py).
+"""End-to-end monocular VO pipelines (port of vo_tpu/models/vo.py).
 
-`TrackingVO` is vo_tracking (feature_tracking.cpp): ORB or SIFT on frame
-0 (`VOConfig.detector`), pyramidal LK frame to frame, a re-detect + knn
-match step (Hamming for ORB, L2 for SIFT) when the tracked survivors drop
-below `min_tracked` (feature_tracking.cpp:69-71), 5-point LO-RANSAC pose,
-closed-form depths, matched-cloud scale, and pose chaining cur = prev @
-T^-1.
+- `TrackingVO` is vo_tracking (feature_tracking.cpp): ORB or SIFT on frame
+  0 (`VOConfig.detector`), pyramidal LK frame to frame, a re-detect + knn
+  match step (Hamming for ORB, L2 for SIFT) when the tracked survivors
+  drop below `min_tracked` (feature_tracking.cpp:69-71), 5-point
+  LO-RANSAC pose, closed-form depths, matched-cloud scale, and pose
+  chaining cur = prev @ T^-1.
+- `MatchingVO` is vo_matching (feature_matching.cpp): detect + describe
+  every frame, knn(2) ratio matching against the previous frame, the same
+  geometry, and by default the unmatched-cloud scale of that driver.
 
 Every step is a fixed-shape program of masked arrays on the device. The
 one data-dependent choice, whether to re-detect, is made on the host from
@@ -25,7 +27,7 @@ from .. import resolve_device
 from ..frontend.orb import OrbConfig, level_budgets, orb_detect_and_compute
 from ..frontend.sift import SiftConfig, sift_detect_and_compute
 from ..geometry.epipolar import normalize_pixels, ransac_essential, recover_pose
-from ..geometry.scale import relative_scale_matched
+from ..geometry.scale import relative_scale_matched, relative_scale_unmatched
 from ..geometry.se3 import inv_se3, make_se3
 from ..geometry.triangulate import triangulate_depths
 from ..ops.hamming import knn2_ratio_match, l2_table, match_descriptors
@@ -54,6 +56,14 @@ class VOConfig(NamedTuple):
     min_tracked: int = 150
     match_ratio: float = 0.8
     min_pose_points: int = 8
+    # "matched": prev/cur 3D points pair by slot (tracking, where LK keeps
+    # slot identity); "unmatched": the i-th valid point of each cloud pair
+    # up, truncated to the common count (feature_matching.cpp:251-263)
+    scale_mode: str = "matched"
+    # "reference" caches the raw unit-baseline cloud, as the reference does
+    # (feature_tracking.cpp:271-281), so each scale is a baseline ratio;
+    # "rescaled" caches s * X (measured worse in vo_tpu: kept for parity)
+    scale_chain: str = "reference"
     # "async": the re-detect gate never blocks on the device->host survivor
     # count; "sync": it waits for it every frame (reproducible runs, tests)
     fallback_gate: str = "async"
@@ -129,12 +139,17 @@ def _pose_scale_chain(pts1, pts2, valid, K, prev3d, prev3d_valid, pose, gen,
     X = z1[:, None] * torch.cat([p1n, torch.ones_like(p1n[:, :1])], 1)
     cur_valid = (valid & torch.isfinite(z1) & torch.isfinite(z2)
                  & (z1 > 0) & (z2 > 0) & (z1 < 1e4))
-    s = relative_scale_matched(prev3d, X, prev3d_valid & cur_valid)
+    if cfg.scale_mode == "matched":
+        s = relative_scale_matched(prev3d, X, prev3d_valid & cur_valid)
+    else:
+        s = relative_scale_unmatched(prev3d, prev3d_valid, X, cur_valid)
     n_inl = pose_res.mask.sum()
     enough = (valid.sum() >= cfg.min_pose_points) \
         & (n_inl >= cfg.min_pose_points)
     new_pose = torch.where(enough, pose @ inv_se3(make_se3(R, s * t)), pose)
     s = torch.where(enough, s, torch.ones_like(s))
+    if cfg.scale_chain == "rescaled":
+        X = s * X
     return new_pose, X, cur_valid & enough, s, n_inl, enough
 
 
@@ -266,34 +281,48 @@ def _refresh_core(state: TrackingState, img, feats1, feats2, K,
                                  cfg, fallback=True, slot=slot)
 
 
-class TrackingVO:
-    """vo_tracking-equivalent pipeline: `init(img0)`, then `step(...)` per
-    frame. Runs on `device` (``cuda`` unless told otherwise)."""
+class _Pipeline:
+    """What every pipeline shares: configuration, device, intrinsics and
+    the frontend. Runs on `device` (``cuda`` unless told otherwise)."""
 
     def __init__(self, K, config: VOConfig = VOConfig(), device=None):
+        if config.detector not in ("orb", "sift"):
+            raise ValueError(f"unknown detector {config.detector!r}")
+        if config.scale_mode not in ("matched", "unmatched"):
+            raise ValueError(f"unknown scale mode {config.scale_mode!r}")
         self.cfg = config
         self.device = resolve_device(device)
         self.K = torch.as_tensor(np.asarray(K), dtype=torch.float32,
                                  device=self.device)
-        if config.detector not in ("orb", "sift"):
-            raise ValueError(f"unknown detector {config.detector!r}")
         self.capacity = _feature_capacity(config)
-        self._gate = _AsyncScalarGate(config.fallback_gate,
-                                      config.gate_max_lag)
 
     def _image(self, img) -> torch.Tensor:
         return torch.as_tensor(img).to(self.device, torch.float32)
+
+    def _generator(self, seed: int) -> torch.Generator:
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(seed)
+        return gen
 
     def detect(self, img: torch.Tensor):
         """(pts (K, 2), descriptors, valid (K,)) of one frame."""
         return detect_and_describe(img, self.cfg)
 
+
+class TrackingVO(_Pipeline):
+    """vo_tracking-equivalent pipeline: `init(img0)`, then `step(...)` per
+    frame."""
+
+    def __init__(self, K, config: VOConfig = VOConfig(), device=None):
+        super().__init__(K, config, device)
+        self._gate = _AsyncScalarGate(config.fallback_gate,
+                                      config.gate_max_lag)
+
     def init(self, img0, seed: int = 0) -> TrackingState:
         self._gate.reset()
         img0 = self._image(img0)
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(seed)
-        return _tracking_init(self.detect(img0), img0, gen, self.cfg)
+        return _tracking_init(self.detect(img0), img0, self._generator(seed),
+                              self.cfg)
 
     def step(self, state: TrackingState, img, slot=None):
         """One frame. `slot` (ransac_iters, 5) replaces this step's RANSAC
@@ -310,13 +339,85 @@ class TrackingVO:
         return state, out
 
 
-def run_vo(seq, pipeline: TrackingVO, verbose: bool = False):
-    """Host loop over a sequence (frame(i), poses). The loop only
-    dispatches; outputs are read back once, after it.
+# ---------------------------------------------------------------- matching
 
-    Returns (est_path (N, 2) x/z, gt_path (N, 2), scales (N, 2) [gt, est],
-    stats list of per-frame dicts)."""
-    gt_poses = seq.poses
+
+class MatchingState(NamedTuple):
+    pts: torch.Tensor  # (K, 2) previous frame's keypoints
+    desc: torch.Tensor  # ORB bit planes or SIFT float descriptors
+    valid: torch.Tensor  # (K,) bool
+    prev3d: torch.Tensor  # (K, 3) previous frame-pair cloud
+    prev3d_valid: torch.Tensor  # (K,) bool
+    pose: torch.Tensor  # (4, 4)
+    gen: torch.Generator  # RANSAC draws
+
+
+def _matching_init(feats, gen, cfg: VOConfig) -> MatchingState:
+    pts, desc, valid = feats
+    return MatchingState(
+        pts=pts, desc=desc, valid=valid,
+        prev3d=pts.new_zeros((pts.shape[0], 3)),
+        prev3d_valid=torch.zeros_like(valid),
+        pose=torch.eye(4, dtype=torch.float32, device=pts.device),
+        gen=gen,
+    )
+
+
+def _matching_core(state: MatchingState, feats, K, cfg: VOConfig, slot=None):
+    """knn-match the previous frame's features against this frame's, then
+    pose, scale and chaining."""
+    pts2_all, desc2, valid2 = feats
+    m = match_features(state.desc, desc2, state.valid, valid2, cfg)
+    new_pose, cur3d, cur3d_valid, s, n_inl, pose_ok = _pose_scale_chain(
+        state.pts, pts2_all[m.idx], m.valid, K, state.prev3d,
+        state.prev3d_valid, state.pose, state.gen, cfg, slot,
+    )
+    new_state = MatchingState(
+        pts=pts2_all, desc=desc2, valid=valid2, prev3d=cur3d,
+        prev3d_valid=cur3d_valid, pose=new_pose, gen=state.gen,
+    )
+    return new_state, _untracked_output(new_pose, s, m.count(), n_inl,
+                                        pose_ok, cfg)
+
+
+def _untracked_output(pose, scale, n_assoc, n_inliers, pose_ok,
+                      cfg: VOConfig) -> FrameOutput:
+    """FrameOutput of a pipeline without a re-detect gate: the dip flag is
+    this frame's alone."""
+    n_assoc = n_assoc.to(torch.int32)
+    health = torch.where(pose_ok, n_assoc, torch.zeros_like(n_assoc))
+    return FrameOutput(
+        pose=pose,
+        scale=scale,
+        n_assoc=n_assoc,
+        n_inliers=n_inliers,
+        fallback=torch.zeros((), dtype=torch.bool, device=pose.device),
+        health=health,
+        gate=torch.stack([(health < cfg.min_tracked).to(torch.int32),
+                          health]),
+    )
+
+
+class MatchingVO(_Pipeline):
+    """vo_matching-equivalent pipeline: detect + knn-match every frame."""
+
+    def init(self, img0, seed: int = 0) -> MatchingState:
+        return _matching_init(self.detect(self._image(img0)),
+                              self._generator(seed), self.cfg)
+
+    def step(self, state: MatchingState, img, slot=None):
+        """One frame. `slot` (ransac_iters, 5) replaces this step's RANSAC
+        draws (tests feed the reference's)."""
+        return _matching_core(state, self.detect(self._image(img)), self.K,
+                              self.cfg, slot)
+
+
+# ---------------------------------------------------------------- driver
+
+
+def _dispatch(seq, pipeline, verbose: bool = False) -> list:
+    """Every step's output over a sequence (frame(i), poses). The loop
+    only dispatches: nothing is read back inside it."""
     state = pipeline.init(seq.frame(0))
     outs = []
     for i in range(1, len(seq)):
@@ -324,16 +425,25 @@ def run_vo(seq, pipeline: TrackingVO, verbose: bool = False):
         outs.append(out)
         if verbose and i % 100 == 0:
             print(f"dispatched frame {i}")
+    return outs
 
+
+def _read_back(outs: list, fields) -> dict:
+    """Each field of the outputs stacked over the steps, in one copy to
+    the host per field."""
+    return {k: torch.stack([getattr(o, k) for o in outs]).cpu().numpy()
+            for k in fields}
+
+
+def _trajectory(gt_poses, cols: dict):
+    """(est_path, gt_path, scales, stats) from the stacked FrameOutput
+    columns: x/z of each pose, the ground truth's step lengths beside the
+    estimator's scales, and per-frame counts."""
     est_path = [np.zeros(2)]
     gt_path = [gt_poses[0][[0, 2], 3]]
     scales, stats = [(1.0, 1.0)], [{}]
-    if outs:
-        cols = {k: torch.stack([getattr(o, k) for o in outs]).cpu().numpy()
-                for k in FrameOutput._fields}
-    for i in range(1, len(outs) + 1):
-        pose = cols["pose"][i - 1]
-        est_path.append(pose[[0, 2], 3])
+    for i in range(1, len(cols["pose"]) + 1):
+        est_path.append(cols["pose"][i - 1][[0, 2], 3])
         gt_path.append(gt_poses[i][[0, 2], 3])
         gt_scale = float(
             np.linalg.norm(gt_poses[i][:3, 3] - gt_poses[i - 1][:3, 3])
@@ -348,3 +458,15 @@ def run_vo(seq, pipeline: TrackingVO, verbose: bool = False):
             "health": int(cols["health"][i - 1]),
         })
     return np.asarray(est_path), np.asarray(gt_path), np.asarray(scales), stats
+
+
+def run_vo(seq, pipeline, verbose: bool = False):
+    """Host loop over a sequence (frame(i), poses) for any pipeline whose
+    `step` returns (state, FrameOutput). Outputs are read back once, after
+    the loop.
+
+    Returns (est_path (N, 2) x/z, gt_path (N, 2), scales (N, 2) [gt, est],
+    stats list of per-frame dicts)."""
+    outs = _dispatch(seq, pipeline, verbose)
+    cols = _read_back(outs, FrameOutput._fields) if outs else {"pose": []}
+    return _trajectory(seq.poses, cols)
