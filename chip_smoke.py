@@ -45,7 +45,13 @@ Phases, each of which raises on failure (the script then exits non-zero):
    the pose's own response to a 1e-4 px jitter of the tracked points, then
    5 free-running steps of each path; SIFT detect on frame 0 through the
    kernels and through the plain versions of B2, B3 and B4; matching_orb's
-   first 3 steps through the plain B2, held as tracking_orb's.
+   first 3 steps through the plain B2, held as tracking_orb's;
+5. entry points: the 60 frames written as a KITTI-layout directory of
+   PNGs, decoded by the native decoder (bit-exact, every frame served by
+   it), the CLI's tracking_orb on it (launch counters zeroed around it,
+   ATE from the bundle's files), a run checkpointed every 20 frames,
+   stopped at frame 41 and resumed, held to two uninterrupted runs, and
+   `compare` on frame 0's PNG held to vo_tpu's report.
 
 Output: the card's name and power limit first, a JSON line of per-kernel
 results second to last, and {"ok": true, "device": {...}} last.
@@ -1183,6 +1189,166 @@ def compare_matching_plain(seq, device, steps: int = 3) -> None:
                            f"{failed}")
 
 
+# vo_tpu's `compare` report on frame 0 of the pipeline sequence as a PNG
+# (scripts/eval_ref_compare.py --full, JAX on the CPU of an H100 host). The
+# port's report is held to these figures plus the ORB parity tolerances of
+# tests/test_torch_orb.py (angles to 1e-4 rad, bits to 1e-4).
+# vo_tpu reports 1000 keypoints, FAST-positive at all of them, orientation
+# error 2.38e-7 rad at most (1.78e-8 mean) and bit error 0.
+COMPARE_REF = {"n_keypoints": 1000,
+               "orientation_max_err_rad": 2.384185791015625e-07,
+               "descriptor_bit_error_rate": 0.0}
+COMPARE_TOLERANCE = 1e-4
+RESUME_EVERY = 20
+RESUME_CUT = 41  # the interrupted run's frames: checkpoints at 20 and 40
+
+
+def _bundle(out_dir: str) -> dict:
+    """The result bundle's paths and the ATE share of the path they give."""
+    from vo_tpu_torch.utils.io import load_path
+    from vo_tpu_torch.utils.metrics import compute_ate
+
+    gt = load_path(f"{out_dir}/tracking_orb/gt_path.txt")
+    est = load_path(f"{out_dir}/tracking_orb/est_path.txt")
+    ate, _ = compute_ate(gt, est)
+    path = float(np.linalg.norm(np.diff(gt, axis=0), axis=1).sum())
+    return {"est": est, "ate": ate, "share": ate / path}
+
+
+def run_entry_points(base, counts: dict, card: str) -> None:
+    """The runtime's entry points on a KITTI-layout directory written from
+    the pipeline sequence's 60 frames (rounded to uint8, PNGs from the
+    standard library's encoder): the native decoder through
+    `KittiSequence.open(...).prefetched()` (every frame bit-exact), the CLI's
+    tracking_orb (launch counters zeroed around it; B1 a multiple of 4, at
+    least 4 per tracking step; B2 > 0; ATE from the bundle's files within
+    ORB_ATE_LIMIT), a run interrupted at frame 41 and resumed from its
+    checkpoint against two uninterrupted checkpointed runs, and `compare`
+    on frame 0's PNG against vo_tpu's report (COMPARE_REF)."""
+    import os
+    import tempfile
+
+    import torch
+
+    from vo_tpu_torch.data.kitti import KittiSequence, write_sequence
+    from vo_tpu_torch.models import vo as vo_module
+    from vo_tpu_torch.runtime import cli
+    from vo_tpu_torch.runtime.compare import run_compare
+    from vo_tpu_torch.runtime.loader import (build_error, decode_png,
+                                             native_available)
+
+    modules = _kernel_modules()
+    frames = [np.clip(np.rint(base.frame(i)), 0, 255).astype(np.uint8)
+              for i in range(len(base))]
+    with tempfile.TemporaryDirectory() as tmp:
+        kitti = os.path.join(tmp, "kitti")
+        write_sequence(kitti, "05", frames, base.poses, base.K)
+
+        seq = KittiSequence.open(kitti, "05")
+        t0 = time.perf_counter()
+        if not native_available():  # builds it with g++ on first use
+            raise RuntimeError(f"the native PNG decoder is unavailable: "
+                               f"{build_error()}")
+        _log(f"native PNG decoder ready in {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        for p in seq.image_paths:
+            decode_png(p)
+        sync_ms = (time.perf_counter() - t0) * 1e3 / len(seq)
+        pre = seq.prefetched()
+        t0 = time.perf_counter()
+        bad = [i for i in range(len(pre))
+               if not np.array_equal(pre.frame(i), frames[i])]
+        pre_ms = (time.perf_counter() - t0) * 1e3 / len(pre)
+        served = pre.served
+        pre.close()
+        _log(f"decode: {len(seq)} PNGs of {SHAPE[0]}x{SHAPE[1]}, "
+             f"decode_png {sync_ms:.3f} ms per frame, prefetched (4 threads) "
+             f"{pre_ms:.3f} ms per frame; native decoder served {served}; "
+             f"frames unequal to their uint8 source: {bad}")
+        if bad or served != len(seq):
+            raise RuntimeError(f"native decode: unequal frames {bad}, "
+                               f"served {served} of {len(seq)}")
+
+        def run_cli(out, *extra):
+            tracked = []
+            real = vo_module._track_step
+
+            def spy(*args, **kwargs):
+                tracked.append(1)
+                return real(*args, **kwargs)
+
+            for m in modules.values():
+                m.launches = 0
+            with mock.patch.object(vo_module, "_track_step", spy):
+                rep = cli.main(["--preset", "tracking_orb", "--kitti-dir",
+                                kitti, "--seq", "05", "--out",
+                                os.path.join(tmp, out), "--no-plots", *extra])
+            torch.cuda.synchronize()
+            launched = {k: m.launches for k, m in modules.items()}
+            return rep, launched, len(tracked), _bundle(os.path.join(tmp, out))
+
+        rep, launched, n_track, b = run_cli("cli", "--max-frames", "60")
+        files = sorted(os.listdir(os.path.join(tmp, "cli", "tracking_orb")))
+        b1, b2 = launched["lk_refine"], launched["separable_blur"]
+        _log(f"cli tracking_orb on the KITTI-layout PNGs ({card}): "
+             f"{rep['fps']} fps (host clock over {rep['n_frames']} frames, "
+             f"closed by a sync), "
+             f"compile_s {rep['compile_s']}, ATE {b['ate']:.4f} "
+             f"({100 * b['share']:.2f} % of the path, limit "
+             f"{100 * ORB_ATE_LIMIT:.0f} %), launches {launched}, tracking "
+             f"steps {n_track} (the warm-up step included), bundle {files}")
+        if b1 % 4 or b1 < 4 * n_track or b2 <= 0:
+            raise RuntimeError(f"cli: B1 {b1} launches for {n_track} tracking "
+                               f"steps, B2 {b2}")
+        if b["share"] > ORB_ATE_LIMIT:
+            raise RuntimeError(f"cli: ATE {100 * b['share']:.2f} % of the path")
+        if files != ["est_path.txt", "gt_path.txt", "metrics.json",
+                     "scale.txt"]:
+            raise RuntimeError(f"cli: bundle {files}")
+        counts["cli_tracking_orb"] = launched
+
+        every = ["--checkpoint-every", str(RESUME_EVERY)]
+        ckpt = os.path.join(tmp, "resume.npz")
+        run_cli("cut", *every, "--max-frames", str(RESUME_CUT),
+                "--checkpoint-file", ckpt)
+        resumed = run_cli("resumed", *every, "--max-frames", "60",
+                          "--checkpoint-file", ckpt)
+        whole = [run_cli(f"whole{k}", *every, "--max-frames", "60",
+                         "--checkpoint-file", os.path.join(tmp, f"w{k}.npz"))
+                 for k in (1, 2)]
+        gap = float(np.abs(whole[0][3]["est"] - whole[1][3]["est"]).max())
+        off = [float(np.abs(resumed[3]["est"] - w[3]["est"]).max())
+               for w in whole]
+        steps = len(seq) - RESUME_CUT
+        _log(f"resume at frame {RESUME_CUT} with --checkpoint-every "
+             f"{RESUME_EVERY} ({card}): "
+             f"{steps / resumed[0]['runtime_s']:.2f} steps/s over the last "
+             f"{steps} steps; uninterrupted checkpointed runs "
+             f"{[w[0]['fps'] for w in whole]} fps, ATE "
+             f"{[round(100 * w[3]['share'], 4) for w in whole]} % vs resumed "
+             f"{100 * resumed[3]['share']:.4f} %; max |est| gap between the "
+             f"two uninterrupted runs {gap:.3g}, resumed vs each {off}")
+        if min(off) > gap:  # 0 when the two are bit-equal
+            raise RuntimeError(f"resumed run off the uninterrupted ones by "
+                               f"{off}, beyond their own gap {gap}")
+
+        png0 = seq.image_paths[0]
+        for m in modules.values():
+            m.launches = 0
+        cmp = run_compare(png0, None, True)
+        torch.cuda.synchronize()
+        launched = {k: m.launches for k, m in modules.items()}
+    _log(f"compare on frame 0's PNG: {json.dumps(cmp)}; launches {launched}; "
+         f"vo_tpu's {COMPARE_REF} (tolerance {COMPARE_TOLERANCE})")
+    if launched["separable_blur"] <= 0 or cmp["n_keypoints"] <= 0:
+        raise RuntimeError(f"compare: launches {launched}, "
+                           f"{cmp['n_keypoints']} keypoints")
+    for k in ("orientation_max_err_rad", "descriptor_bit_error_rate"):
+        if cmp[k] > COMPARE_REF[k] + COMPARE_TOLERANCE:
+            raise RuntimeError(f"compare: {k} {cmp[k]} > vo_tpu's "
+                               f"{COMPARE_REF[k]} + {COMPARE_TOLERANCE}")
+
+
 def main() -> int:
     try:
         import torch
@@ -1206,7 +1372,8 @@ def main() -> int:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     )
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    card = smi.stdout.strip().splitlines()[0]
+    print(card, flush=True)
     device = torch.device("cuda")
     _log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
          f"{torch.cuda.get_device_name(0)}")
@@ -1274,6 +1441,7 @@ def main() -> int:
     compare_plain_path(seq, device)
     compare_sift_plain(clean, device)
     compare_matching_plain(clean, device)
+    run_entry_points(base, counts, card)
 
     for k in kernels:
         k["launches"] = counts["tracking_sift"][k["name"]]

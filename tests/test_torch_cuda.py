@@ -454,3 +454,55 @@ def test_tracking_ba_pipeline_runs_through_the_kernels(cuda, name):
     assert ran and all(s["ba_cost"] < s["ba_cost0"] for s in ran)
     if name == "tracking_sift_ba":
         assert len(ran) == 2 and sum(s["ba_accepted"] for s in ran) > 0
+
+
+def test_on_frame_hook_on_card(cuda):
+    """The hook sees, in order and from step 1, the steps whose pinned pose
+    copy has arrived (CUDA events), each pose equal to the returned path's;
+    the path equals the run without a hook."""
+    from vo_tpu_torch.models.vo import run_vo
+
+    seq = SyntheticSequence.generate(n_frames=10, shape=(240, 320))
+    preset = get_preset("tracking_orb")
+    cfg = preset.config._replace(fallback_gate="sync")
+    est0, *_ = run_vo(seq, preset.make(seq.K, cfg))
+    seen = []
+    est, *_ = run_vo(seq, preset.make(seq.K, cfg),
+                     on_frame=lambda i, f: seen.append((i, f.pose)))
+    np.testing.assert_array_equal(est, est0)
+    assert [i for i, _ in seen] == list(range(1, len(seen) + 1))
+    assert seen
+    for i, pose in seen:
+        assert not pose.is_cuda
+        np.testing.assert_array_equal(pose.numpy()[[0, 2], 3], est[i])
+
+
+def test_checkpoint_resume_on_card(cuda, tmp_path):
+    """A run on the card stopped after frame 6 and resumed from its
+    checkpoint (CUDA generator state included) equals the uninterrupted
+    checkpointed run, with the sync gate."""
+    from vo_tpu_torch.runtime.checkpoint import CheckpointingRunner
+
+    class First:
+        def __init__(self, seq, n):
+            self.poses, self.K, self._seq, self._n = seq.poses[:n], seq.K, \
+                seq, n
+
+        def __len__(self):
+            return self._n
+
+        def frame(self, i):
+            return self._seq.frame(i)
+
+    seq = SyntheticSequence.generate(n_frames=12, shape=(240, 320))
+    preset = get_preset("tracking_orb")
+    cfg = preset.config._replace(fallback_gate="sync")
+    full = CheckpointingRunner(preset.make(seq.K, cfg),
+                               str(tmp_path / "full.npz"), every=3).run(seq)
+    ckpt = str(tmp_path / "cut.npz")
+    CheckpointingRunner(preset.make(seq.K, cfg), ckpt, every=3).run(
+        First(seq, 7))
+    resumed = CheckpointingRunner(preset.make(seq.K, cfg), ckpt,
+                                  every=3).run(seq)
+    for a, b in zip(full[:3], resumed[:3]):
+        np.testing.assert_array_equal(b, a)

@@ -37,7 +37,7 @@ def test_port_imports_no_jax_and_no_vo_tpu():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     n, bad = res.stdout.strip().split(" ", 1)
-    assert int(n) >= 25  # every module of the package was imported
+    assert int(n) >= 52  # every module of the package was imported
     assert bad == "[]"
 
 
@@ -55,6 +55,17 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         with pytest.raises(RuntimeError, match="CUDA"):
             cls(K)
         assert cls(K, device="cpu").device.type == "cpu"
+
+
+def test_cli_default_device_raises_without_a_card(monkeypatch, tmp_path):
+    from vo_tpu_torch.runtime import cli, compare
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(["--synthetic", "4", "--out", str(tmp_path)])
+    assert not (tmp_path / "tracking_orb").exists()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        compare.run_compare(None, None, False)
 
 
 def test_tf32_is_off():

@@ -153,6 +153,19 @@ def _pose_scale_chain(pts1, pts2, valid, K, prev3d, prev3d_valid, pose, gen,
     return new_pose, X, cur_valid & enough, s, n_inl, enough
 
 
+def _start_host_copy(value: torch.Tensor):
+    """(host tensor, CUDA event or None): a copy of `value` into pinned host
+    memory, started at once without waiting, and the event that marks its
+    arrival. A CPU tensor is its own copy and needs no event."""
+    if not value.is_cuda:
+        return value, None
+    host = torch.empty(value.shape, dtype=value.dtype, pin_memory=True)
+    host.copy_(value, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record()
+    return host, event
+
+
 class _AsyncScalarGate:
     """Non-blocking watch of the device-side dip latch.
 
@@ -178,15 +191,7 @@ class _AsyncScalarGate:
 
     def push(self, value: torch.Tensor) -> None:
         self._step += 1
-        if value.is_cuda:
-            host = torch.empty(value.shape, dtype=value.dtype,
-                               pin_memory=True)
-            host.copy_(value, non_blocking=True)
-            event = torch.cuda.Event()
-            event.record()
-        else:
-            host, event = value, None
-        self._inbox.append((self._step, host, event))
+        self._inbox.append((self._step, *_start_host_copy(value)))
 
     def _apply(self, idx: int, host: torch.Tensor) -> None:
         if idx > self._last_trigger and bool(host[0]):  # the dip latch
@@ -415,14 +420,45 @@ class MatchingVO(_Pipeline):
 # ---------------------------------------------------------------- driver
 
 
-def _dispatch(seq, pipeline, verbose: bool = False) -> list:
+class _ArrivedPoses:
+    """The `on_frame` hook of a run: each step's pose is copied to pinned
+    host memory as the step is dispatched, and `on_frame(i, out)` is called,
+    in order, for the steps whose copy has arrived, with `out.pose` the
+    host copy (the other fields stay on the device). Nothing waits: steps
+    whose copy is still in flight when the loop ends are not reported."""
+
+    def __init__(self, on_frame):
+        self.on_frame = on_frame
+        self._pending: list = []  # (FrameOutput, host pose, event or None)
+        self._next = 1
+
+    def push(self, frame: FrameOutput) -> None:
+        self._pending.append((frame, *_start_host_copy(frame.pose)))
+
+    def drain(self) -> None:
+        while self._pending:
+            frame, host, event = self._pending[0]
+            if event is not None and not event.query():
+                break
+            self._pending.pop(0)
+            self.on_frame(self._next, frame._replace(pose=host))
+            self._next += 1
+
+
+def _dispatch(seq, pipeline, verbose: bool = False, on_frame=None) -> list:
     """Every step's output over a sequence (frame(i), poses). The loop
-    only dispatches: nothing is read back inside it."""
+    only dispatches: nothing is read back inside it. `on_frame(i, frame)`
+    is called during the loop for steps whose pose has arrived on the host
+    (`_ArrivedPoses`); `frame` is the step's FrameOutput."""
     state = pipeline.init(seq.frame(0))
+    hook = _ArrivedPoses(on_frame) if on_frame is not None else None
     outs = []
     for i in range(1, len(seq)):
         state, out = pipeline.step(state, seq.frame(i))
         outs.append(out)
+        if hook is not None:
+            hook.push(getattr(out, "frame", out))
+            hook.drain()
         if verbose and i % 100 == 0:
             print(f"dispatched frame {i}")
     return outs
@@ -460,13 +496,16 @@ def _trajectory(gt_poses, cols: dict):
     return np.asarray(est_path), np.asarray(gt_path), np.asarray(scales), stats
 
 
-def run_vo(seq, pipeline, verbose: bool = False):
+def run_vo(seq, pipeline, verbose: bool = False, on_frame=None):
     """Host loop over a sequence (frame(i), poses) for any pipeline whose
     `step` returns (state, FrameOutput). Outputs are read back once, after
-    the loop.
+    the loop. `on_frame(i, out)` (optional) is the live-view hook: called
+    during the run, in order, for steps whose pose has already arrived on
+    the host (`out.pose` is that host copy); it lags the device a few
+    frames and never blocks the loop.
 
     Returns (est_path (N, 2) x/z, gt_path (N, 2), scales (N, 2) [gt, est],
     stats list of per-frame dicts)."""
-    outs = _dispatch(seq, pipeline, verbose)
+    outs = _dispatch(seq, pipeline, verbose, on_frame)
     cols = _read_back(outs, FrameOutput._fields) if outs else {"pose": []}
     return _trajectory(seq.poses, cols)

@@ -225,11 +225,17 @@ class TrackingBAVO(_Pipeline):
         return state, out
 
 
-def run_vo_ba(seq, pipeline: TrackingBAVO, verbose: bool = False):
+def run_vo_ba(seq, pipeline: TrackingBAVO, verbose: bool = False,
+              on_frame=None):
     """`run_vo` for the BA pipeline, with the reference's rewrite of the
     estimated path on BA frames (with_bundle_adjustment.cpp:237-247): each
-    solve's window poses replace the path of the window's frames."""
-    outs = _dispatch(seq, pipeline)
+    solve's window poses replace the path of the window's frames.
+
+    `on_frame(i, frame_out)` is the live-view hook of `run_vo`, called with
+    each step's FrameOutput; window rewrites are not replayed into it (the
+    live view shows the online estimate, the saved bundle the refined
+    one)."""
+    outs = _dispatch(seq, pipeline, on_frame=on_frame)
     if not outs:
         return _trajectory(seq.poses, {"pose": []})
     est, gt, scales, stats = _trajectory(

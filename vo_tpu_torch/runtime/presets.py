@@ -28,10 +28,11 @@ class Preset:
             return self.make(K, self.config, self.window, device=device)
         return self.make(K, self.config, device=device)
 
-    def run(self, seq, pipeline, verbose=False):
+    def run(self, seq, pipeline, verbose=False, on_frame=None):
         if self.window is not None:
-            return run_vo_ba(seq, pipeline, verbose=verbose)
-        return run_vo(seq, pipeline, verbose=verbose)
+            return run_vo_ba(seq, pipeline, verbose=verbose,
+                             on_frame=on_frame)
+        return run_vo(seq, pipeline, verbose=verbose, on_frame=on_frame)
 
 
 _ORB = VOConfig(orb=OrbConfig(nfeatures=3000, fast_threshold=20.0))
