@@ -51,7 +51,21 @@ Phases, each of which raises on failure (the script then exits non-zero):
    it), the CLI's tracking_orb on it (launch counters zeroed around it,
    ATE from the bundle's files), a run checkpointed every 20 frames,
    stopped at frame 41 and resumed, held to two uninterrupted runs, and
-   `compare` on frame 0's PNG held to vo_tpu's report.
+   `compare` on frame 0's PNG held to vo_tpu's report;
+6. parallel: a 1-rank NCCL group (FileStore in a temporary directory, 60 s
+   timeout, every section under a watchdog that ends the process) and the
+   port's parallel/ on it: `ShardedTrackingVO` (tracking_orb's keypoint-
+   sharded step, B1 on the shard, one all-gather a step) over the 60
+   frames without the blank frame, its poses, n_assoc and n_inliers bit
+   for bit against the dense tracking_orb on the same frames
+   (`parallel_tracking_orb` in launches_by_path, B1 4 a step), timed
+   beside it; `sharded_match_descriptors` on frames 0/1's 2996 ORB
+   descriptors, `sharded_gaussian_blur` (B2) and `sharded_fast_score` on
+   frame 0 (`parallel_blur_fast`) and `batched_orb` on frames 0 and 1
+   (`parallel_batched_orb`), each bit for bit against the dense call;
+   `sharded_window_ba` on the tracking_sift_ba window of phase 3, its
+   landmark and hold-out counts equal to `run_window_ba`'s and its poses
+   within 2e-3.
 
 Output: the card's name and power limit first, a JSON line of per-kernel
 results second to last, and {"ok": true, "device": {...}} last.
@@ -566,10 +580,11 @@ def run_pipeline(name, seq, device, ate_limit, kernels, note,
     return counts
 
 
-def time_window_ba(seq, device, reps: int = 5) -> None:
+def time_window_ba(seq, device, reps: int = 5) -> tuple:
     """Host milliseconds per windowed BA solve of tracking_sift_ba at
     KITTI shape (each call closed by synchronize), on the window of its
-    first BA step, after one warm-up call."""
+    first BA step, after one warm-up call. Returns that solve's arguments
+    (window, K, WindowConfig, map)."""
     import torch
 
     from vo_tpu_torch.models import vo_ba
@@ -605,6 +620,7 @@ def time_window_ba(seq, device, reps: int = 5) -> None:
          f"{wcfg.ba.max_iters} LM steps): {ms:.1f} ms per solve (host "
          f"clock, synchronized); by torch.profiler {len(ev)} device "
          f"operations, {dev_ms:.2f} ms of device time per solve")
+    return calls[0]
 
 
 def time_sift_detect(seq, device, reps: int = 5) -> None:
@@ -1349,6 +1365,233 @@ def run_entry_points(base, counts: dict, card: str) -> None:
                                f"{COMPARE_REF[k]} + {COMPARE_TOLERANCE}")
 
 
+PARALLEL_POSE_TOLERANCE = 2e-3  # tests/test_parallel.py's window BA bound
+WATCHDOG_S = 300.0
+
+
+def _hung(tag: str, elapsed: float) -> None:
+    """The watchdog's action: a section that hangs (a collective whose
+    peer is gone) ends the process with a non-zero code."""
+    import os
+
+    print(f"[chip_smoke] watchdog: '{tag}' still running after "
+          f"{elapsed:.0f} s; exiting", file=sys.stderr, flush=True)
+    os._exit(3)
+
+
+def run_parallel(clean, window_call, counts: dict, card: str) -> None:
+    """The parallel port on a 1-rank NCCL group (module docstring, phase
+    6). Launch counts go into `counts` under parallel_tracking_orb,
+    parallel_blur_fast and parallel_batched_orb."""
+    import os
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from vo_tpu_torch.frontend.orb import OrbFeatures, orb_detect_and_compute
+    from vo_tpu_torch.ops.conv import binomial_blur5
+    from vo_tpu_torch.ops.fast import fast_score
+    from vo_tpu_torch.ops.hamming import match_descriptors
+    from vo_tpu_torch.parallel import (StepWatchdog, batched_orb, make_mesh,
+                                       shard_leading, sharded_fast_score,
+                                       sharded_gaussian_blur,
+                                       sharded_match_descriptors)
+    from vo_tpu_torch.ba.window import run_window_ba
+    from vo_tpu_torch.parallel.ba import shard_window, sharded_window_ba
+    from vo_tpu_torch.parallel.mesh import init_process_group
+    from vo_tpu_torch.runtime.presets import get_preset
+
+    wd = StepWatchdog(timeout_s=WATCHDOG_S, on_timeout=_hung)
+    modules = _kernel_modules()
+    t_phase = time.perf_counter()
+
+    def zero():
+        for m in modules.values():
+            m.launches = 0
+
+    def launched():
+        torch.cuda.synchronize()
+        return {k: m.launches for k, m in modules.items()}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        with wd.watch("NCCL group init"):
+            t0 = time.perf_counter()
+            init_process_group(0, 1, f"file://{os.path.join(tmp, 'store')}",
+                               "cuda")
+            mesh = make_mesh(axis="kp")  # cuda, as every entry point
+            probe = torch.ones(1, device="cuda")
+            dist.all_reduce(probe)
+            torch.cuda.synchronize()
+            init_s = time.perf_counter() - t0
+        try:
+            backend = dist.get_backend()
+            if backend != "nccl" or float(probe) != 1.0:
+                raise RuntimeError(f"parallel: backend {backend}, all-reduce "
+                                   f"of one rank gave {float(probe)}")
+            _log(f"parallel: 1-rank {backend} group and mesh {mesh} in "
+                 f"{init_s:.2f} s")
+            _parallel_tracking(clean, mesh, wd, counts, card, zero, launched)
+            preset = get_preset("tracking_orb")
+            with wd.watch("sharded matching"):
+                f0, f1 = (orb_detect_and_compute(clean.frame(i),
+                                                 preset.config.orb)
+                          for i in (0, 1))
+                cut = lambda x: shard_leading(mesh, "kp", x)  # noqa: E731
+                dense = match_descriptors(f0.bits, f1.bits, f0.valid,
+                                          f1.valid)
+                shard = sharded_match_descriptors(
+                    mesh, cut(f0.bits), cut(f1.bits), cut(f0.valid),
+                    cut(f1.valid))
+                same = all(torch.equal(a, b) for a, b in zip(dense, shard))
+                ms = [_time_ms(lambda: match_descriptors(
+                    f0.bits, f1.bits, f0.valid, f1.valid), 10),
+                      _time_ms(lambda: sharded_match_descriptors(
+                          mesh, f0.bits, f1.bits, f0.valid, f1.valid), 10)]
+            _log(f"sharded matching {f0.bits.shape[0]} x {f1.bits.shape[0]} "
+                 f"(frames 0/1, 1 rank, {card}): {int(dense.count())} "
+                 f"matches, bit-equal to match_descriptors: {same}; "
+                 f"{ms[0]:.4f} ms dense, {ms[1]:.4f} ms sharded (CUDA events)")
+            if not same:
+                raise RuntimeError("sharded matching differs from the dense")
+
+            row = make_mesh(axis="row")
+            img = clean.frame(0)
+            with wd.watch("row-sharded stencils"):
+                blur, fast = binomial_blur5(img), fast_score(img)
+                zero()
+                sblur = sharded_gaussian_blur(row)(
+                    shard_leading(row, "row", img))
+                sfast = sharded_fast_score(row)(shard_leading(row, "row",
+                                                              img))
+                counts["parallel_blur_fast"] = launched()
+            eq = (torch.equal(sblur, blur), torch.equal(sfast, fast))
+            _log(f"row-sharded blur and FAST on frame 0 (376x1241, 1 rank): "
+                 f"bit-equal {eq}, FAST corners {int((fast > 0).sum())}, "
+                 f"launches {counts['parallel_blur_fast']}")
+            if not all(eq) or counts["parallel_blur_fast"]["separable_blur"] \
+                    != 1:
+                raise RuntimeError(f"row-sharded stencils: equal {eq}, "
+                                   f"{counts['parallel_blur_fast']}")
+
+            frame = make_mesh(axis="frame")
+            frames = torch.stack([clean.frame(0), clean.frame(1)])
+            with wd.watch("batched ORB"):
+                zero()
+                feats = batched_orb(frame, preset.config.orb)(
+                    shard_leading(frame, "frame", frames))
+                counts["parallel_batched_orb"] = launched()
+            same = all(torch.equal(getattr(feats, k)[i], getattr(f, k))
+                       for i, f in enumerate((f0, f1))
+                       for k in OrbFeatures._fields)
+            _log(f"batched_orb on frames 0 and 1 (1 rank): equal to the "
+                 f"single-frame detect {same}, keypoints "
+                 f"{feats.valid.sum(1).tolist()}, launches "
+                 f"{counts['parallel_batched_orb']}")
+            if not same or counts["parallel_batched_orb"]["separable_blur"] \
+                    != 2:
+                raise RuntimeError("batched_orb differs from the detect")
+
+            win, K, wcfg, lmap = window_call
+            with wd.watch("sharded window BA"):
+                poses, _, info, _ = run_window_ba(win, K, wcfg, lmap=lmap)
+                sposes, _, sinfo, _ = sharded_window_ba(
+                    mesh, shard_window(mesh, win), K, wcfg,
+                    lmap=tuple(shard_leading(mesh, "kp", x) for x in lmap))
+                torch.cuda.synchronize()
+            counts_eq = all(int(info[k]) == int(sinfo[k])
+                            for k in ("ba_landmarks", "ba_holdout_n",
+                                      "ba_ran", "ba_reused"))
+            gap = float((sposes - poses).abs().max())
+            _log(f"sharded window BA (tracking_sift_ba's first window, "
+                 f"{win.obs.shape[1]} slots, 1 rank): landmarks "
+                 f"{int(sinfo['ba_landmarks'])} / {int(info['ba_landmarks'])}"
+                 f", hold-out {int(sinfo['ba_holdout_n'])} / "
+                 f"{int(info['ba_holdout_n'])}, accepted "
+                 f"{int(sinfo['ba_accepted'])}, max |pose gap| {gap:.3g}, "
+                 f"bit-equal {torch.equal(sposes, poses)}")
+            if not counts_eq or not torch.allclose(
+                    sposes, poses, rtol=PARALLEL_POSE_TOLERANCE,
+                    atol=PARALLEL_POSE_TOLERANCE):
+                raise RuntimeError("sharded window BA left the dense one")
+            _log(f"parallel phase: {time.perf_counter() - t_phase:.1f} s "
+                 f"({card})")
+        finally:
+            dist.destroy_process_group()
+
+
+def _parallel_tracking(clean, mesh, wd, counts, card, zero, launched):
+    """tracking_orb through ShardedTrackingVO and through the dense
+    pipeline, after a 3-step warm-up of each, their steps interleaved (the
+    order alternating step by step) and each closed by a synchronize:
+    poses, n_assoc and n_inliers bit-equal, the host time of each, and the
+    sharded run's launches (counters zeroed just before each of its
+    calls, read just after)."""
+    import torch
+
+    from vo_tpu_torch.models.vo import FrameOutput, _read_back
+    from vo_tpu_torch.parallel.vo_step import ShardedTrackingVO
+    from vo_tpu_torch.runtime.presets import get_preset
+
+    preset = get_preset("tracking_orb")
+    make = {"dense": lambda: preset.build(clean.K),
+            "sharded": lambda: ShardedTrackingVO(mesh, clean.K,
+                                                 preset.config)}
+    with wd.watch("sharded and dense tracking_orb"):
+        for name, build in make.items():
+            warm = build()
+            state = warm.init(clean.frame(0))
+            for i in range(1, 4):
+                state, _ = warm.step(state, clean.frame(i))
+        torch.cuda.synchronize()
+        pipes = {name: build() for name, build in make.items()}
+        secs = dict.fromkeys(pipes, 0.0)
+        outs = {name: [] for name in pipes}
+        states, total = {}, {k: 0 for k in _kernel_modules()}
+
+        def timed(name, call):
+            zero()
+            t0 = time.perf_counter()
+            res = call()
+            torch.cuda.synchronize()
+            secs[name] += time.perf_counter() - t0
+            if name == "sharded":
+                for k, v in launched().items():
+                    total[k] += v
+            return res
+
+        for name, p in pipes.items():
+            states[name] = timed(name, lambda: p.init(clean.frame(0)))
+        for i in range(1, len(clean)):
+            order = list(pipes) if i % 2 else list(pipes)[::-1]
+            for name in order:
+                states[name], out = timed(name, lambda: pipes[name].step(
+                    states[name], clean.frame(i)))
+                outs[name].append(out)
+        cols = {name: _read_back(o, FrameOutput._fields)
+                for name, o in outs.items()}
+    counts["parallel_tracking_orb"] = total
+    d, s = cols["dense"], cols["sharded"]
+    n = len(clean) - 1
+    same = {k: bool(np.array_equal(d[k], s[k]))
+            for k in ("pose", "n_assoc", "n_inliers", "fallback")}
+    refresh = [i + 1 for i, f in enumerate(s["fallback"]) if f]
+    b1 = total["lk_refine"]
+    _log(f"parallel tracking_orb, 1-rank NCCL, {SHAPE[0]}x{SHAPE[1]}, "
+         f"{len(clean)} frames ({card}): sharded "
+         f"{1e3 * secs['sharded'] / n:.2f} ms per step, dense "
+         f"{1e3 * secs['dense'] / n:.2f} ms per step (host clock over init "
+         f"+ {n} steps, each closed by a synchronize, the two runs' steps "
+         f"interleaved); bit-equal {same}; re-detects (through the dense "
+         f"refresh) at steps {refresh}; launches {total}; median n_assoc "
+         f"{int(np.median(s['n_assoc']))}")
+    if not all(same.values()):
+        raise RuntimeError(f"sharded tracking_orb differs from the dense: "
+                           f"{same}")
+    if b1 != 4 * (n - len(refresh)) or total["separable_blur"] < 1:
+        raise RuntimeError(f"parallel tracking_orb: launches {total} for "
+                           f"{n - len(refresh)} track steps")
+
 def main() -> int:
     try:
         import torch
@@ -1437,11 +1680,12 @@ def main() -> int:
         "tracking_sift_ba", clean, device, ATE_LIMIT["tracking_sift_ba"],
         tuple(_kernel_modules()), "no blank frame", warm_steps=10)
     time_sift_detect(clean, device)
-    time_window_ba(clean, device)
+    window_call = time_window_ba(clean, device)
     compare_plain_path(seq, device)
     compare_sift_plain(clean, device)
     compare_matching_plain(clean, device)
     run_entry_points(base, counts, card)
+    run_parallel(clean, window_call, counts, card)
 
     for k in kernels:
         k["launches"] = counts["tracking_sift"][k["name"]]

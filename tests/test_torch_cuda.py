@@ -506,3 +506,45 @@ def test_checkpoint_resume_on_card(cuda, tmp_path):
                                   every=3).run(seq)
     for a, b in zip(full[:3], resumed[:3]):
         np.testing.assert_array_equal(b, a)
+
+
+def test_parallel_dryrun_one_nccl_rank(cuda):
+    """Every sharded path in one spawned NCCL rank on the card (B1 and B2
+    on the shards), each case against the dense call on the card."""
+    import torch.distributed as dist
+
+    from vo_tpu_torch.parallel.dryrun import check_case, dryrun_multichip
+
+    if not dist.is_nccl_available():
+        pytest.fail("this PyTorch has no NCCL")
+    cases = dryrun_multichip(1, device="cuda", check=False, timeout_s=240)
+    for name, result in cases.items():
+        check_case(name, result)
+    assert cases["parity"]["sharded"]["exact"]
+
+
+def test_sharded_tracking_on_one_nccl_rank(cuda, tmp_path):
+    """ShardedTrackingVO in this process on a 1-rank NCCL group: B1 four
+    times a step, and the run bit-equal to the dense tracking_orb."""
+    import torch.distributed as dist
+
+    from vo_tpu_torch.models.vo import FrameOutput, _dispatch, _read_back
+    from vo_tpu_torch.parallel import make_mesh
+    from vo_tpu_torch.parallel.mesh import init_process_group
+    from vo_tpu_torch.parallel.vo_step import ShardedTrackingVO
+
+    seq = SyntheticSequence.generate(n_frames=6, shape=(240, 320))
+    cfg = get_preset("tracking_orb").config._replace(fallback_gate="sync")
+    dense = _read_back(_dispatch(seq, get_preset("tracking_orb").make(
+        seq.K, cfg)), FrameOutput._fields)
+    init_process_group(0, 1, f"file://{tmp_path}/store", "cuda")
+    try:
+        assert dist.get_backend() == "nccl"
+        before = lk_cuda.launches
+        vo = ShardedTrackingVO(make_mesh(), seq.K, cfg)
+        sharded = _read_back(_dispatch(seq, vo), FrameOutput._fields)
+        assert lk_cuda.launches - before == 4 * (len(seq) - 1)
+    finally:
+        dist.destroy_process_group()
+    for k in ("pose", "n_assoc", "n_inliers"):
+        np.testing.assert_array_equal(sharded[k], dense[k])

@@ -20,9 +20,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _PROBE = r"""
 import importlib, pkgutil, sys
 sys.modules["jax"] = None  # any import of jax now raises
-import vo_tpu_torch
-names = [m.name for m in pkgutil.walk_packages(vo_tpu_torch.__path__,
-                                                "vo_tpu_torch.")]
+pkg = importlib.import_module(sys.argv[1])
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__,
+                                                pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
 import chip_smoke
@@ -31,13 +31,26 @@ print(len(names), bad)
 """
 
 
-def test_port_imports_no_jax_and_no_vo_tpu():
+def _import_all(package: str) -> tuple[int, str]:
+    """(modules under `package`, vo_tpu modules loaded) from importing
+    every module of `package` and chip_smoke where jax cannot load."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    res = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO, env=env,
-                         capture_output=True, text=True, timeout=120)
+    res = subprocess.run([sys.executable, "-c", _PROBE, package], cwd=REPO,
+                         env=env, capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     n, bad = res.stdout.strip().split(" ", 1)
-    assert int(n) >= 52  # every module of the package was imported
+    return int(n), bad
+
+
+def test_port_imports_no_jax_and_no_vo_tpu():
+    n, bad = _import_all("vo_tpu_torch")
+    assert n >= 64  # every module of the package was imported
+    assert bad == "[]"
+
+
+def test_parallel_imports_no_jax_and_no_vo_tpu():
+    n, bad = _import_all("vo_tpu_torch.parallel")
+    assert n == 11  # vo_tpu/parallel's nine modules, dryrun and launch
     assert bad == "[]"
 
 
@@ -55,6 +68,15 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         with pytest.raises(RuntimeError, match="CUDA"):
             cls(K)
         assert cls(K, device="cpu").device.type == "cpu"
+    from vo_tpu_torch.parallel import make_mesh, make_mesh_2d
+    from vo_tpu_torch.parallel.scaling import main as scaling_main
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_mesh()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_mesh_2d((1, 1))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        scaling_main([])
 
 
 def test_cli_default_device_raises_without_a_card(monkeypatch, tmp_path):

@@ -15,6 +15,10 @@ solver uses the bipartite structure of a window:
 - a fixed number of LM steps, each accepted or refused by a select: no
   value is read back to the host inside the solve.
 
+Distribution: every landmark-axis reduction goes through `_lsum`, an
+all-reduce over the process group that holds the landmark shards when one
+is given (parallel/ba.py), so one code path serves one device and many.
+
 Poses are world->cam [angle-axis | translation] 6-vectors, as the
 reference optimises the inverted poses (:596-600, :713).
 """
@@ -24,6 +28,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from ..geometry.linalg3 import inv3x3
 from ..geometry.se3 import exp_so3, exp_so3_jacobian
@@ -105,6 +110,17 @@ def _robust_cost(r2, mask, delta):
     return torch.where(mask, rho, torch.zeros_like(rho)).sum()
 
 
+def _lsum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """A landmark-axis reduction summed over the landmark shards of
+    `group` (the identity without one), into a contiguous copy: NCCL
+    refuses the non-contiguous output of an einsum."""
+    if group is None:
+        return x
+    y = x.clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(y, op=dist.ReduceOp.SUM, group=group)
+    return y
+
+
 def _gauge_obs(poses, mode: str):
     """The scale observable the gauge prior pins, and its gradient
     (W, 6) in closed form: the path length through the camera centres
@@ -131,7 +147,7 @@ def bundle_adjust(poses: torch.Tensor, points: torch.Tensor, obs: torch.Tensor,
                   obs_mask: torch.Tensor, point_mask: torch.Tensor,
                   K: torch.Tensor, config: BAConfig = BAConfig(),
                   return_trace: bool = False,
-                  point_prior_w: torch.Tensor | None = None):
+                  point_prior_w: torch.Tensor | None = None, group=None):
     """Joint pose and structure refinement on a fixed window.
 
     poses (W, 6) world->cam; points (L, 3); obs (W, L, 2) px; obs_mask
@@ -140,7 +156,12 @@ def bundle_adjust(poses: torch.Tensor, points: torch.Tensor, obs: torch.Tensor,
     w * (X - X_init) for landmarks with w > 0 (the cross-window map
     anchor of ba/window.py): landmark-diagonal, so it adds to V and gp
     only. With `return_trace`, also returns each LM step's (accept,
-    lambda, candidate cost), stacked over the steps."""
+    lambda, candidate cost), stacked over the steps.
+
+    With `group` (a process group), the landmark axis of points, obs and
+    the masks is this rank's shard: the landmark sums (cost, U, gc, the
+    reduced camera system) are all-reduced over it, so the poses and
+    costs come out replicated and the points stay local."""
     W = poses.shape[0]
     dt = poses.dtype
     mask = obs_mask & point_mask[None, :]
@@ -178,17 +199,18 @@ def bundle_adjust(poses: torch.Tensor, points: torch.Tensor, obs: torch.Tensor,
         Wm = torch.einsum("wlri,wlrj->wlij", Jcw, Jpw)
         gc = -torch.einsum("wlri,wlr->wi", Jcw, rw)
         gp = -torch.einsum("wlri,wlr->li", Jpw, rw)
-        cost = _robust_cost(r2, mask, config.huber_delta)
+        cost = _lsum(_robust_cost(r2, mask, config.huber_delta), group)
         if pw2 is not None:
             dX = points_ - X_anchor
             V = V + pw2[:, None, None] * eye3
             gp = gp - pw2[:, None] * dX
-            cost = cost + (pw2 * (dX * dX).sum(-1)).sum()
+            cost = cost + _lsum((pw2 * (dX * dX).sum(-1)).sum(), group)
         rs, _ = scale_residual(poses_)
         return U, V, Wm, gc, gp, cost + rs * rs
 
     def solve(poses_, U, V, Wm, gc, gp, lam):
         # Marquardt damping lam * diag(H), plus a tiny identity floor
+        U = _lsum(U, group)
         du = eye6 * torch.diagonal(U, dim1=-2, dim2=-1)[..., None, :]
         Ud = U + lam * du + (lam * 1e-6) * eye6
         # padding landmarks get an identity V (their gp is zero)
@@ -197,10 +219,10 @@ def bundle_adjust(poses: torch.Tensor, points: torch.Tensor, obs: torch.Tensor,
                          V + lam * dv + (lam * 1e-6) * eye3, eye3)
         Vinv = inv3x3(Vd)
         Y = torch.einsum("wlij,ljk->wlik", Wm, Vinv)
-        S = -torch.einsum("wlik,vljk->wvij", Y, Wm)
+        S = -_lsum(torch.einsum("wlik,vljk->wvij", Y, Wm), group)
         S = S + torch.einsum("wv,wij->wvij",
                              torch.eye(W, dtype=dt, device=U.device), Ud)
-        rhs = gc - torch.einsum("wlik,lk->wi", Y, gp)
+        rhs = _lsum(gc - torch.einsum("wlik,lk->wi", Y, gp), group)
         # gauge: the fixed pose's rows and columns zero, identity diagonal
         f = (free[:, None] * torch.ones(1, 6, dtype=dt, device=U.device)
              ).reshape(-1)
@@ -239,7 +261,7 @@ def bundle_adjust(poses: torch.Tensor, points: torch.Tensor, obs: torch.Tensor,
                                       lam * config.lambda_up),
                           config.lambda_min, 1e8)
     res = BAResult(poses=cur[0], points=cur[1], cost0=cost0, cost=cost,
-                   n_obs=mask.sum())
+                   n_obs=_lsum(mask.sum(), group))
     if not return_trace:
         return res
     return res, tuple(torch.stack(x) for x in zip(*trace))

@@ -17,10 +17,11 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from ..geometry.linalg3 import nullspace_jacobi
 from ..geometry.se3 import exp_so3, inv_se3, log_so3, make_se3
-from .schur import BAConfig, _robust_cost, bundle_adjust
+from .schur import BAConfig, _lsum, _robust_cost, bundle_adjust
 
 
 class WindowConfig(NamedTuple):
@@ -150,7 +151,8 @@ def build_landmarks(T_wc, obs, valid, K, cfg: WindowConfig):
                            cfg.max_depth)
 
 
-def _holdout_cost(T_wc, obs, valid, K, hold, delta: float) -> torch.Tensor:
+def _holdout_cost(T_wc, obs, valid, K, hold, delta: float, group=None
+                  ) -> torch.Tensor:
     """Huber reprojection cost of the held-out landmarks, each
     re-triangulated from the poses under test (a similarity of the whole
     window leaves it unchanged: it scores consistency)."""
@@ -162,11 +164,11 @@ def _holdout_cost(T_wc, obs, valid, K, hold, delta: float) -> torch.Tensor:
     worst = torch.full_like(r2, 1e6)
     r2 = torch.where(good, torch.clamp(r2, max=1e6),
                      torch.where(v, worst, torch.zeros_like(r2)))
-    return _robust_cost(r2, v, delta)
+    return _lsum(_robust_cost(r2, v, delta), group)
 
 
 def run_window_ba(st: WindowState, K: torch.Tensor, cfg: WindowConfig,
-                  lmap=None):
+                  lmap=None, group=None):
     """Assemble and solve the window's BA; returns (new_poses (W, 4, 4),
     applied (W,) bool, info dict of 0-d tensors), and the updated map
     (map_X, map_ok) when `lmap` = (map_X (K, 3), map_ok (K,)) is given.
@@ -174,7 +176,13 @@ def run_window_ba(st: WindowState, K: torch.Tensor, cfg: WindowConfig,
     Poses are optimised world->cam and gated per pose against runaway
     updates before they are written back. With `lmap`, map points that
     pass the gates against this window replace the fresh triangulation
-    and carry a soft position prior."""
+    and carry a soft position prior.
+
+    With `group` (a process group), the slot axis of `st.obs`, `st.valid`
+    and `lmap` is this rank's shard of equal-sized shards in rank order:
+    the gate counts, hold-out costs and the solve's landmark sums are
+    all-reduced over it and the hold-out picks slots by global index, so
+    the poses and the info come out replicated."""
     W, Kcap = st.valid.shape
     T_wc = inv_se3(st.poses)
     pose6 = torch.cat([log_so3(T_wc[:, :3, :3]), T_wc[:, :3, 3]], 1)
@@ -191,6 +199,8 @@ def run_window_ba(st: WindowState, K: torch.Tensor, cfg: WindowConfig,
 
     # every holdout_every-th candidate validates the solve instead
     gidx = torch.arange(Kcap, device=X.device)
+    if group is not None:
+        gidx = gidx + dist.get_rank(group) * Kcap
     if cfg.holdout_every > 0:
         hold = point_ok & (gidx % cfg.holdout_every == 0)
     else:
@@ -201,13 +211,13 @@ def run_window_ba(st: WindowState, K: torch.Tensor, cfg: WindowConfig,
                                         - st.poses[0, :3, 3])
     ba_ok = ((st.count >= W) & (baseline > cfg.min_baseline)
              & (baseline < cfg.max_baseline)
-             & (solve_ok.sum() >= cfg.min_landmarks))
+             & (_lsum(solve_ok.sum(), group) >= cfg.min_landmarks))
     solve_ok = solve_ok & ba_ok  # an empty problem when gated off
 
     res = bundle_adjust(pose6, torch.where(torch.isfinite(X), X,
                                            torch.zeros_like(X)),
                         st.obs, st.valid, solve_ok, K, config=cfg.ba,
-                        point_prior_w=prior_w)
+                        point_prior_w=prior_w, group=group)
 
     # per-pose accept gates (:699-717)
     dR = exp_so3(res.poses[:, :3]) @ exp_so3(pose6[:, :3]).transpose(-1, -2)
@@ -218,11 +228,11 @@ def run_window_ba(st: WindowState, K: torch.Tensor, cfg: WindowConfig,
     new_T_wc = make_se3(exp_so3(res.poses[:, :3]), res.poses[:, 3:])
 
     # adaptive accept: the held-out landmarks must not get worse
-    n_hold = hold.sum()
+    n_hold = _lsum(hold.sum(), group)
     if cfg.holdout_every > 0:
         d = cfg.ba.huber_delta
-        c_old = _holdout_cost(T_wc, st.obs, st.valid, K, hold, d)
-        c_new = _holdout_cost(new_T_wc, st.obs, st.valid, K, hold, d)
+        c_old = _holdout_cost(T_wc, st.obs, st.valid, K, hold, d, group)
+        c_new = _holdout_cost(new_T_wc, st.obs, st.valid, K, hold, d, group)
         pose_ok = pose_ok & ((c_new <= c_old) | (n_hold < cfg.min_holdout))
     else:
         c_old = c_new = torch.zeros((), device=X.device)
@@ -233,7 +243,7 @@ def run_window_ba(st: WindowState, K: torch.Tensor, cfg: WindowConfig,
         "ba_ran": ba_ok,
         "ba_cost0": res.cost0,
         "ba_cost": res.cost,
-        "ba_landmarks": solve_ok.sum(),
+        "ba_landmarks": _lsum(solve_ok.sum(), group),
         "ba_accepted": pose_ok.sum(),
         "ba_holdout_cost0": c_old,
         "ba_holdout_cost": c_new,
@@ -247,5 +257,5 @@ def run_window_ba(st: WindowState, K: torch.Tensor, cfg: WindowConfig,
     map_X, map_ok = lmap
     new_map = (torch.where((solve_ok & applied)[:, None], res.points, map_X),
                torch.where(applied, solve_ok, map_ok))
-    info["ba_reused"] = (reuse & solve_ok).sum()
+    info["ba_reused"] = _lsum((reuse & solve_ok).sum(), group)
     return new_poses, pose_ok, info, new_map

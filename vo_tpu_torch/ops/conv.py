@@ -15,6 +15,7 @@ from . import blur_cuda
 
 SOBEL_X = np.array([[-1, 0, 1], [-2, 0, 2], [-1, 0, 1]], dtype=np.float64)
 SOBEL_Y = SOBEL_X.T.copy()
+BINOMIAL_5 = np.array([1.0, 4.0, 6.0, 4.0, 1.0]) / 16.0
 
 
 def opencv_gaussian_sigma(ksize: int) -> float:
@@ -91,6 +92,12 @@ def gaussian_blur(img: torch.Tensor, ksize: int = 5,
     """Separable Gaussian blur, OpenCV sigma heuristic, reflect-101."""
     k = gaussian_kernel_1d(ksize, sigma)
     return separable_conv_same(img, k, k)
+
+
+def binomial_blur5(img: torch.Tensor) -> torch.Tensor:
+    """The reference's fixed 5-tap binomial blur (GaussianBlur1D.cu), on
+    kernel B2 for a CUDA tensor."""
+    return separable_conv_same(img, BINOMIAL_5, BINOMIAL_5)
 
 
 def sobel(img: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
