@@ -65,7 +65,14 @@ Phases, each of which raises on failure (the script then exits non-zero):
    (`parallel_batched_orb`), each bit for bit against the dense call;
    `sharded_window_ba` on the tracking_sift_ba window of phase 3, its
    landmark and hold-out counts equal to `run_window_ba`'s and its poses
-   within 2e-3.
+   within 2e-3;
+7. scan mode and B1 against its lane count: `run_vo_scan` on tracking_orb
+   (blank frame), tracking_sift and matching_orb, each from the preset's
+   own pipeline (tracking_orb's gate is async), bit-equal to `run_vo` with
+   the sync gate in trajectory, scales and per-frame stats, with both fps;
+   then B1 timed (CUDA events) on one tracking_orb step's work, the step
+   into frame 40, at full capacity, at the live slots and on the same
+   state cut to its first 1536, 768 and 192 live slots.
 
 Output: the card's name and power limit first, a JSON line of per-kernel
 results second to last, and {"ok": true, "device": {...}} last.
@@ -1591,6 +1598,136 @@ def _parallel_tracking(clean, mesh, wd, counts, card, zero, launched):
     if b1 != 4 * (n - len(refresh)) or total["separable_blur"] < 1:
         raise RuntimeError(f"parallel tracking_orb: launches {total} for "
                            f"{n - len(refresh)} track steps")
+# ---------------------------------------------------------------- phase 7
+
+SCAN_PATHS = (  # (preset, sequence, kernels it must launch)
+    ("tracking_orb", "seq", ("lk_refine", "separable_blur")),
+    ("tracking_sift", "clean", ("lk_refine", "separable_blur",
+                                "crop_windows", "row_conv")),
+    ("matching_orb", "clean", ("separable_blur",)))
+LK_SLOTS = (1536, 768, 192)  # slot counts B1 is timed at besides the live
+LK_STEP = 40  # the tracking_orb step whose work B1 is timed on
+
+
+def scan_vs_loop(name, seq) -> tuple:
+    """The preset `name` through `run_vo` with the sync gate and through
+    `run_vo_scan` from the preset's own pipeline, on the same frames.
+    Raises unless the two are bit-equal. Returns (scan's stats, loop s,
+    scan s, the scan's launch counts)."""
+    import torch
+
+    from vo_tpu_torch.models.vo import run_vo
+    from vo_tpu_torch.models.vo_scan import run_vo_scan
+    from vo_tpu_torch.runtime.presets import get_preset
+
+    preset = get_preset(name)
+    t0 = time.perf_counter()
+    loop = run_vo(seq, preset.make(
+        seq.K, preset.config._replace(fallback_gate="sync")))
+    torch.cuda.synchronize()
+    t_loop = time.perf_counter() - t0
+    vo = preset.build(seq.K)
+    modules = _kernel_modules()
+    for m in modules.values():
+        m.launches = 0
+    t0 = time.perf_counter()
+    scan = run_vo_scan(seq, vo)
+    torch.cuda.synchronize()
+    t_scan = time.perf_counter() - t0
+    counts = {k: m.launches for k, m in modules.items()}
+    differ = [k for k, a, b in zip(("est", "gt", "scales"), loop, scan)
+              if not np.array_equal(a, b)]
+    if loop[3] != scan[3]:
+        differ.append("stats")
+    if differ:
+        raise RuntimeError(f"{name}: scan differs from the step loop in "
+                           f"{differ}")
+    return scan[3], t_loop, t_scan, counts
+
+
+def run_scans(seqs: dict, counts: dict) -> None:
+    """Each of SCAN_PATHS in scan mode against its sync-gate step loop."""
+    for name, which, kernels in SCAN_PATHS:
+        seq = seqs[which]
+        stats, t_loop, t_scan, c = scan_vs_loop(name, seq)
+        n = len(seq) - 1
+        redetects = [i for i, s in enumerate(stats) if s.get("fallback")]
+        _log(f"{name}_scan: {n} steps bit-equal to the sync-gate step loop "
+             f"(trajectory, scales, n_assoc, n_inliers, scale, fallback, "
+             f"health); scan {n / t_scan:.2f} fps, step loop "
+             f"{n / t_loop:.2f} fps (host clock over init + {n} steps, "
+             f"closed by synchronize; loop first); re-detects at "
+             f"{redetects}; launches {c}")
+        if name == "tracking_orb" and not redetects:
+            raise RuntimeError("tracking_orb_scan: no re-detect")
+        if min(c[k] for k in kernels) <= 0:
+            raise RuntimeError(f"{name}_scan: a kernel was not launched: "
+                               f"{c}")
+        counts[f"{name}_scan"] = c
+
+
+def _first_live(state, n: int):
+    """The tracking state on n slots: its live slots first, in slot order
+    (then dead ones), every per-slot field cut alike."""
+    import torch
+
+    from vo_tpu_torch.ops.lk import LKCache
+
+    idx = torch.argsort((~state.pts_valid).to(torch.uint8), stable=True)[:n]
+    return state._replace(
+        lk_cache=LKCache(origins=tuple(o[idx]
+                                       for o in state.lk_cache.origins)),
+        pts=state.pts[idx], pts_valid=state.pts_valid[idx],
+        prev3d=state.prev3d[idx], prev3d_valid=state.prev3d_valid[idx])
+
+
+def time_lk_slots(seq, card: str) -> None:
+    """B1 per track step against the number of slots it runs on: the
+    tracking_orb state before step LK_STEP (sync gate), at full capacity,
+    at its live slots and cut to LK_SLOTS, each tracked into frame LK_STEP
+    from the same generator state; the step's four B1 launches timed with
+    CUDA events (20 reps), with B1's N and mean iterations per level."""
+    import torch
+
+    from vo_tpu_torch.models.vo import _track_step
+    from vo_tpu_torch.ops import lk_cuda
+    from vo_tpu_torch.runtime.presets import get_preset
+
+    preset = get_preset("tracking_orb")
+    vo = preset.make(seq.K, preset.config._replace(fallback_gate="sync"))
+    state = vo.init(seq.frame(0))
+    for i in range(1, LK_STEP):
+        state, _ = vo.step(state, seq.frame(i))
+    gen_state = state.gen.get_state()
+    live = int(state.pts_valid.sum())
+    for n in (vo.capacity, live, *LK_SLOTS):
+        st = state if n == vo.capacity else _first_live(state, n)
+        gen = torch.Generator(device=st.pts.device)
+        gen.set_state(gen_state)
+        spy, args = _capture(lk_cuda, "refine_level")
+        with spy:
+            _track_step(st._replace(gen=gen), seq.frame(LK_STEP), vo.K,
+                        vo.cfg)
+        if len(args) != 4 or any(a[2].shape[0] != n for a in args):
+            raise RuntimeError(f"B1 at {n} slots: launches on "
+                               f"{[a[2].shape[0] for a in args]} points")
+        iters = [round(float(lk_cuda.refine_level(*a)[2].float().mean()), 2)
+                 for a in args]
+        ms = _time_ms(lambda: [lk_cuda.refine_level(*a) for a in args], 20)
+        kind = ("full capacity" if n == vo.capacity else
+                "the live slots" if n == live else "live slots only")
+        _log(f"B1 per track step into frame {LK_STEP} on {n} slots ({kind}"
+             f"; {min(n, live)} live): {ms:.4f} ms (4 levels, CUDA events, "
+             f"20 reps; mean iterations per level {iters}; {card})")
+
+
+def run_rest(seqs: dict, card: str, counts: dict) -> None:
+    """Phase 7: scan mode, then B1 against its lane count."""
+    t0 = time.perf_counter()
+    run_scans(seqs, counts)
+    time_lk_slots(seqs["clean"], card)
+    _log(f"phase 7: {time.perf_counter() - t0:.1f} s")
+
 
 def main() -> int:
     try:
@@ -1686,6 +1823,7 @@ def main() -> int:
     compare_matching_plain(clean, device)
     run_entry_points(base, counts, card)
     run_parallel(clean, window_call, counts, card)
+    run_rest({"seq": seq, "clean": clean}, card, counts)
 
     for k in kernels:
         k["launches"] = counts["tracking_sift"][k["name"]]

@@ -11,6 +11,9 @@ import torch
 from vo_tpu.ops.conv import BINOMIAL_5, gaussian_kernel_1d, separable_conv_same
 from vo_tpu_torch.ops import blur_cuda
 from vo_tpu_torch.ops import conv as tconv
+from torch_parity import low_cpu_priority  # noqa: F401 (fixture)
+
+pytestmark = pytest.mark.usefixtures("low_cpu_priority")
 
 
 @pytest.fixture

@@ -548,3 +548,19 @@ def test_sharded_tracking_on_one_nccl_rank(cuda, tmp_path):
         dist.destroy_process_group()
     for k in ("pose", "n_assoc", "n_inliers"):
         np.testing.assert_array_equal(sharded[k], dense[k])
+
+
+@pytest.mark.parametrize("name", ["tracking_orb", "matching_orb"])
+def test_scan_equals_step_loop_on_card(cuda, name):
+    """Scan mode from the preset's own pipeline against the step loop with
+    the sync gate on the card: bit-equal (chip_smoke's scan_vs_loop raises
+    otherwise); tracking re-detects after its blank frames."""
+    from chip_smoke import scan_vs_loop
+
+    seq = SyntheticSequence.generate(n_frames=12, shape=(240, 320),
+                                     dropouts=((5, 6),), dropout_keep=0.0)
+    stats, _, _, counts = scan_vs_loop(name, seq)
+    assert counts["separable_blur"] > 0
+    if name == "tracking_orb":
+        assert counts["lk_refine"] > 0
+        assert any(s.get("fallback") for s in stats)

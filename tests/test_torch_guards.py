@@ -44,7 +44,7 @@ def _import_all(package: str) -> tuple[int, str]:
 
 def test_port_imports_no_jax_and_no_vo_tpu():
     n, bad = _import_all("vo_tpu_torch")
-    assert n >= 64  # every module of the package was imported
+    assert n >= 65  # every module of the package (models/vo_scan.py too)
     assert bad == "[]"
 
 
@@ -77,6 +77,29 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         make_mesh_2d((1, 1))
     with pytest.raises(RuntimeError, match="CUDA"):
         scaling_main([])
+
+
+def _never_called(rank, world):
+    raise AssertionError("a rank started without a card")
+
+
+@pytest.mark.parametrize("entry", ["spawn", "dryrun_multichip",
+                                   "measure_detect_scaling",
+                                   "measure_step_scaling"])
+def test_parallel_launchers_default_to_the_card(monkeypatch, entry):
+    """parallel/'s process launchers run NCCL ranks on the cards unless
+    told device="cpu", and raise before starting a rank without a card."""
+    from vo_tpu_torch.parallel import dryrun, launch, scaling
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    call = {"spawn": lambda: launch.spawn(_never_called, 1),
+            "dryrun_multichip": lambda: dryrun.dryrun_multichip(1),
+            "measure_detect_scaling":
+                lambda: scaling.measure_detect_scaling([1]),
+            "measure_step_scaling":
+                lambda: scaling.measure_step_scaling([1])}[entry]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        call()
 
 
 def test_cli_default_device_raises_without_a_card(monkeypatch, tmp_path):

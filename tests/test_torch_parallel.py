@@ -50,17 +50,19 @@ MESHES = ["world2", "world4", "mesh2x2"]
 
 @pytest.fixture(scope="module")
 def world2():
-    return dryrun_multichip(2, check=False, timeout_s=240)
+    return dryrun_multichip(2, device="cpu", check=False,
+                            timeout_s=240)
 
 
 @pytest.fixture(scope="module")
 def world4():
-    return dryrun_multichip(4, timeout_s=240)
+    return dryrun_multichip(4, device="cpu", timeout_s=240)
 
 
 @pytest.fixture(scope="module")
 def mesh2x2():
-    return dryrun_multichip(4, mesh_shape=(2, 2), check=False, timeout_s=240)
+    return dryrun_multichip(4, mesh_shape=(2, 2), device="cpu",
+                            check=False, timeout_s=240)
 
 
 @pytest.mark.parametrize("case", CASES)
@@ -70,7 +72,8 @@ def test_sharded_equals_dense(mesh, case, request):
 
 
 def test_dryrun_multichip_4(world4):
-    """dryrun_multichip(4) checked every case itself (the fixture)."""
+    """dryrun_multichip(4, device="cpu") checked every case itself (the
+    fixture)."""
     assert sorted(world4) == sorted(CASES)
 
 

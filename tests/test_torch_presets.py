@@ -24,9 +24,15 @@ from torch_parity import low_cpu_priority  # noqa: F401 (fixture)
 pytestmark = pytest.mark.usefixtures("low_cpu_priority")
 
 
-# Fields of vo_tpu's configurations that the port does not have: the LK
-# layouts and exit multiplier, mesh axes, the per-octave frontends (the
-# port runs the canvas path) and TrackingVO's tiered lanes (not ported).
+# Fields of vo_tpu's configurations that the port does not have, none of
+# them set by a preset. Three select a TPU implementation of one function:
+# `layout` the LK window storage (the port has one layout), `exit_mult` the
+# LK loop's early exit (the port ends each point on its own), `axis_name` a
+# mesh axis inside LK (the port's sharded step needs no collective inside
+# LK). `canvas` selects vo_tpu's per-level ORB and per-octave SIFT detects,
+# slower duplicates of the canvas detect that every preset runs, and
+# `tier_capacities` the tiered lane capacity, which no preset sets and
+# whose B1 time on the H100 is in PERF.md.
 NOT_PORTED = {"exit_mult", "axis_name", "layout", "canvas", "tier_capacities"}
 
 

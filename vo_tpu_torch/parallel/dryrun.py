@@ -3,12 +3,12 @@ held against the port's dense counterpart (the counterpart of
 `__graft_entry__.py:dryrun_multichip`, which only runs them).
 
     python -c "from vo_tpu_torch.parallel.dryrun import dryrun_multichip; \
-               dryrun_multichip(4)"
+               dryrun_multichip(4, device='cpu')"
 
-runs four gloo ranks on the CPU; ``device="cuda"`` runs NCCL ranks, one
-per card. Every rank makes the same global inputs from fixed seeds with
-numpy, cuts its block, runs the sharded function and gathers the result
-back; rank 0 also runs the dense function. The sharded paths are exact,
+runs four gloo ranks on the CPU; by default (``device="cuda"``) it runs
+NCCL ranks, one per card. Every rank makes the same global inputs from
+fixed seeds with numpy, cuts its block, runs the sharded function and
+gathers the result back; rank 0 also runs the dense function. The sharded paths are exact,
 except the BA solves, whose landmark sums are associated in another order
 and are held to vo_tpu's bounds (`tests/test_parallel.py`).
 """
@@ -379,11 +379,12 @@ def check_case(name: str, result: dict) -> None:
                                           err_msg=f"{name}.{k}")
 
 
-def dryrun_multichip(world: int, mesh_shape=None, device="cpu",
+def dryrun_multichip(world: int, mesh_shape=None, device="cuda",
                      check: bool = True, timeout_s: float = 300.0) -> dict:
-    """Every sharded path once in `world` spawned ranks (`device` "cpu":
-    gloo; "cuda": NCCL, one rank per card); returns rank 0's cases, each
-    checked with `check_case` unless `check` is False."""
+    """Every sharded path once in `world` spawned ranks (`device` "cuda":
+    NCCL, one rank per card, raising without a card; "cpu": gloo); returns
+    rank 0's cases, each checked with `check_case` unless `check` is
+    False."""
     from .launch import spawn
 
     cases = spawn(rank_cases, world, (mesh_shape,), device=device,

@@ -29,12 +29,18 @@ import time
 DEADLINE_S = 300.0
 
 
-def spawn(fn, world: int, args: tuple = (), device="cpu",
+def spawn(fn, world: int, args: tuple = (), device="cuda",
           timeout_s: float = DEADLINE_S) -> list:
     """``[fn(rank, world, *args) for rank in range(world)]``, each in its
-    own process and process group rank. Raises torch's ProcessException
-    when a rank fails and TimeoutError past `timeout_s`."""
+    own process and process group rank, on `device` (``cuda``: NCCL, one
+    rank per card, raising without a card; ``cpu``: gloo). Raises torch's
+    ProcessException when a rank fails and TimeoutError past
+    `timeout_s`."""
     import torch.multiprocessing as mp
+
+    from .. import resolve_device
+
+    device = resolve_device(device).type
 
     module = fn.__module__
     if module == "__main__":  # a module run with -m has its import name
@@ -45,7 +51,7 @@ def spawn(fn, world: int, args: tuple = (), device="cpu",
         raise ValueError(f"spawn: {name} cannot be imported by the ranks")
     with tempfile.TemporaryDirectory(prefix="vo_spawn_") as tmp:
         ctx = mp.start_processes(
-            _rank_main, (name, world, args, str(device), tmp), nprocs=world,
+            _rank_main, (name, world, args, device, tmp), nprocs=world,
             join=False, start_method="spawn")
         deadline = time.monotonic() + timeout_s
         try:

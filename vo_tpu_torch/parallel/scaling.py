@@ -24,6 +24,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from .. import resolve_device
+
 
 def _finish(x: torch.Tensor, t0: float) -> float:
     """Seconds since t0 once `x` is computed on every rank, the slowest
@@ -86,11 +88,13 @@ def _step_rank(rank, world, shape, nfeatures, n_iters):
 
 def measure_detect_scaling(device_counts, frames_per_device: int = 2,
                            shape=(376, 1241), nfeatures: int = 1000,
-                           n_iters: int = 10, device="cpu") -> list[dict]:
+                           n_iters: int = 10, device="cuda") -> list[dict]:
     """Batched ORB detect, `frames_per_device` frames per rank: frames/s
-    and efficiency against the first count's frames/s per rank."""
+    and efficiency against the first count's frames/s per rank. NCCL ranks
+    on the cards unless `device` is "cpu" (gloo)."""
     from .launch import spawn
 
+    device = resolve_device(device).type
     rows, base = [], None
     for d in device_counts:
         dt = spawn(_detect_rank, d, (frames_per_device, tuple(shape),
@@ -105,11 +109,13 @@ def measure_detect_scaling(device_counts, frames_per_device: int = 2,
 
 def measure_step_scaling(device_counts, shape=(376, 1241),
                          nfeatures: int = 3000, n_iters: int = 5,
-                         device="cpu") -> list[dict]:
+                         device="cuda") -> list[dict]:
     """Strong scaling of the keypoint-sharded tracking step
-    (parallel/vo_step.py): efficiency t1 / (d t_d)."""
+    (parallel/vo_step.py): efficiency t1 / (d t_d). NCCL ranks on the
+    cards unless `device` is "cpu" (gloo)."""
     from .launch import spawn
 
+    device = resolve_device(device).type
     rows, t1 = [], None
     for d in device_counts:
         dt = spawn(_step_rank, d, (tuple(shape), nfeatures, n_iters),
