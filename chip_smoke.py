@@ -72,7 +72,14 @@ Phases, each of which raises on failure (the script then exits non-zero):
    the sync gate in trajectory, scales and per-frame stats, with both fps;
    then B1 timed (CUDA events) on one tracking_orb step's work, the step
    into frame 40, at full capacity, at the live slots and on the same
-   state cut to its first 1536, 768 and 192 live slots.
+   state cut to its first 1536, 768 and 192 live slots;
+8. the eval: scripts/eval_torch_synthetic.py's run function on the first
+   100 frames of its hard 1000-frame sequence (seed 0, 240x320, rendered
+   once and staged on the card) for tracking_orb and tracking_sift_ba,
+   launch counters zeroed around each run; each bundle has vo_tpu's files
+   and metrics.json keys (results_tpu/) plus run.json, tracking_sift_ba
+   re-detects in the dropout stretches and solves its window; ATE, RPE,
+   re-detects, BA solves, poses accepted and seconds.
 
 Output: the card's name and power limit first, a JSON line of per-kernel
 results second to last, and {"ok": true, "device": {...}} last.
@@ -81,6 +88,7 @@ results second to last, and {"ok": true, "device": {...}} last.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -1729,6 +1737,78 @@ def run_rest(seqs: dict, card: str, counts: dict) -> None:
     _log(f"phase 7: {time.perf_counter() - t0:.1f} s")
 
 
+# Phase 8: the 1000-frame eval's run function on the hard sequence cut to
+# 100 frames (seed 0), whose dropout stretches (frames 30-35, 60-63 and
+# 80-85) force tracking_sift_ba's re-detects (tracking_orb's LK tracks hold
+# through them); tracking_sift_ba solves its window at steps 10-90.
+EVAL_FRAMES = 100
+EVAL_PRESETS = {"tracking_orb": ("lk_refine", "separable_blur"),
+                "tracking_sift_ba": ("lk_refine", "separable_blur",
+                                     "crop_windows", "row_conv")}
+
+
+def run_eval(counts: dict, card: str) -> None:
+    """Phase 8: scripts/eval_torch_synthetic.py's `run_preset` on the card
+    for tracking_orb and tracking_sift_ba over the staged sequence, each
+    bundle held to vo_tpu's layout (results_tpu/<preset>/: its files, and
+    metrics.json's keys in order) plus run.json, tracking_sift_ba with a
+    re-detect and a BA solve; launch counters zeroed around each run
+    (`eval_<preset>` in launches_by_path)."""
+    import tempfile
+
+    import torch
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.join(root, "scripts"))
+    import eval_torch_synthetic as ev
+
+    t0 = time.perf_counter()
+    device = torch.device("cuda")
+    seq = ev.make_sequence("hard", EVAL_FRAMES, 0)
+    staged = ev.StagedSequence(ev.render(seq), seq.poses, seq.K, device)
+    _log(f"phase 8: rendered and staged {len(staged)} frames of the hard "
+         f"sequence in {time.perf_counter() - t0:.1f} s")
+    meta = {"sequence": "hard", "device": "cuda", "card": card, "jobs": 1,
+            "gate": "preset", "code": ev.code_hash()}
+    modules = _kernel_modules()
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, path_kernels in EVAL_PRESETS.items():
+            for m in modules.values():
+                m.launches = 0
+            run = ev.run_preset(name, staged, tmp, 0, device, meta)
+            c = counts[f"eval_{name}"] = {k: m.launches
+                                          for k, m in modules.items()}
+            ref = os.path.join(root, "results_tpu", name)
+            out = os.path.join(tmp, name)
+            with open(os.path.join(ref, "metrics.json")) as f:
+                ref_keys = list(json.load(f))
+            with open(os.path.join(out, "metrics.json")) as f:
+                row = json.load(f)
+            _log(f"eval {name}: ATE {row['ate_rmse']} m, RPE "
+                 f"{row['rpe_rmse']} m, re-detects at {run['fallbacks']}, BA "
+                 f"solves {run['ba_runs']} (accepting {run['ba_accepting']}, "
+                 f"poses {run['ba_poses']}), {run['seconds']} s "
+                 f"({run['fps']} fps), launches {c}")
+            files = set(os.listdir(ref)) | {"run.json"}
+            if set(os.listdir(out)) != files:
+                raise RuntimeError(f"eval {name}: bundle "
+                                   f"{sorted(os.listdir(out))}, expected "
+                                   f"{sorted(files)}")
+            if list(row) != ref_keys:
+                raise RuntimeError(f"eval {name}: metrics.json keys "
+                                   f"{list(row)}, vo_tpu's {ref_keys}")
+            if not np.isfinite([row["ate_rmse"], row["rpe_rmse"]]).all():
+                raise RuntimeError(f"eval {name}: non-finite metrics {row}")
+            if name == "tracking_sift_ba" and not run["fallbacks"]:
+                raise RuntimeError(f"eval {name}: no re-detect")
+            if name == "tracking_sift_ba" and not run["ba_runs"]:
+                raise RuntimeError(f"eval {name}: no BA solve")
+            if min(c[k] for k in path_kernels) <= 0:
+                raise RuntimeError(f"eval {name}: a kernel was not launched: "
+                                   f"{c}")
+    _log(f"phase 8: {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     try:
         import torch
@@ -1824,6 +1904,7 @@ def main() -> int:
     run_entry_points(base, counts, card)
     run_parallel(clean, window_call, counts, card)
     run_rest({"seq": seq, "clean": clean}, card, counts)
+    run_eval(counts, card)
 
     for k in kernels:
         k["launches"] = counts["tracking_sift"][k["name"]]

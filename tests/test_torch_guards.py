@@ -116,3 +116,51 @@ def test_cli_default_device_raises_without_a_card(monkeypatch, tmp_path):
 def test_tf32_is_off():
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.backends.cudnn.allow_tf32 is False
+
+
+_EVAL_PROBE = r"""
+import runpy, sys
+sys.modules["jax"] = None  # any import of jax now raises
+ev = runpy.run_path("scripts/eval_torch_synthetic.py", run_name="probe")
+seq = ev["make_sequence"]("hard", 12, 0)
+ev["main"](["--report-only", "--out", sys.argv[1], "--doc", sys.argv[2]])
+import vo_tpu_torch.runtime.presets, vo_tpu_torch.utils.io
+bad = sorted(m for m in sys.modules
+             if m == "vo_tpu" or m.startswith("vo_tpu."))
+print(bad)
+"""
+
+
+def test_eval_script_imports_no_jax_and_no_vo_tpu(tmp_path):
+    """scripts/eval_torch_synthetic.py, its document writer included, runs
+    where jax cannot load and loads no vo_tpu module; no import line of it
+    names either."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run(
+        [sys.executable, "-c", _EVAL_PROBE, "results_tpu",
+         str(tmp_path / "doc.md")],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().splitlines()[-1] == "[]"
+    assert "## Held against vo_tpu" in (tmp_path / "doc.md").read_text()
+    with open(os.path.join(REPO, "scripts", "eval_torch_synthetic.py")) as f:
+        imports = [ln.split() for ln in f if ln.lstrip().startswith(
+            ("import ", "from "))]
+    assert imports and all(
+        w[1].split(".")[0] not in ("jax", "vo_tpu") for w in imports)
+
+
+def test_eval_script_default_device_raises_without_a_card(monkeypatch,
+                                                          tmp_path):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "eval_torch_synthetic",
+        os.path.join(REPO, "scripts", "eval_torch_synthetic.py"))
+    ev = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ev)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ev.main(["--frames", "4", "--seeds", "0", "--presets",
+                 "tracking_orb", "--out", str(tmp_path / "out")])
+    assert not (tmp_path / "out").exists()
