@@ -38,6 +38,7 @@ from ..ops.lk import (
     lk_make_cache,
     lk_pyramid_track_cached,
 )
+from ..utils import profiling
 
 
 class VOConfig(NamedTuple):
@@ -75,19 +76,22 @@ class VOConfig(NamedTuple):
 def detect_and_describe(img: torch.Tensor, cfg: VOConfig):
     """(pts (K, 2), desc, valid (K,)) of one frame: `desc` is (K, 256)
     uint8 bit planes for ORB, (K, 128) float32 for SIFT."""
-    if cfg.detector == "sift":
-        f = sift_detect_and_compute(img, cfg.sift)
-        return torch.stack([f.xs, f.ys], 1), f.desc, f.valid
-    f = orb_detect_and_compute(img, cfg.orb)
-    return torch.stack([f.xs, f.ys], 1), f.bits, f.valid
+    with profiling.span("detect"):
+        if cfg.detector == "sift":
+            f = sift_detect_and_compute(img, cfg.sift)
+            return torch.stack([f.xs, f.ys], 1), f.desc, f.valid
+        f = orb_detect_and_compute(img, cfg.orb)
+        return torch.stack([f.xs, f.ys], 1), f.bits, f.valid
 
 
 def match_features(desc1, desc2, valid1, valid2, cfg: VOConfig):
     """knn2 + ratio matching in the detector's metric (Hamming / L2)."""
-    if cfg.detector == "sift":
-        return knn2_ratio_match(l2_table(desc1, desc2), valid1, valid2,
-                                cfg.match_ratio, squared=True)
-    return match_descriptors(desc1, desc2, valid1, valid2, cfg.match_ratio)
+    with profiling.span("match"):
+        if cfg.detector == "sift":
+            return knn2_ratio_match(l2_table(desc1, desc2), valid1, valid2,
+                                    cfg.match_ratio, squared=True)
+        return match_descriptors(desc1, desc2, valid1, valid2,
+                                 cfg.match_ratio)
 
 
 def _feature_capacity(cfg: VOConfig) -> int:
@@ -125,32 +129,35 @@ def _pose_scale_chain(pts1, pts2, valid, K, prev3d, prev3d_valid, pose, gen,
     """RANSAC pose + triangulation scale + chaining. Returns (new_pose,
     cur3d, cur3d_valid, scale, n_inliers, pose_ok); holds the pose when
     fewer than `min_pose_points` associations or inliers survive."""
-    p1n = normalize_pixels(pts1, K)
-    p2n = normalize_pixels(pts2, K)
-    res = ransac_essential(
-        p1n, p2n, valid, threshold=cfg.ransac_px_threshold / K[0, 0],
-        n_iters=cfg.ransac_iters, generator=gen, slot=slot,
-    )
-    pose_res = recover_pose(res.E, p1n, p2n, res.inliers)
-    R, t = pose_res.R, pose_res.t
-    # every association is triangulated under the recovered pose; points
-    # failing cheirality or beyond 1e4 baselines leave the scale median
-    z1, z2 = triangulate_depths(R, t, p1n, p2n)
-    X = z1[:, None] * torch.cat([p1n, torch.ones_like(p1n[:, :1])], 1)
-    cur_valid = (valid & torch.isfinite(z1) & torch.isfinite(z2)
-                 & (z1 > 0) & (z2 > 0) & (z1 < 1e4))
-    if cfg.scale_mode == "matched":
-        s = relative_scale_matched(prev3d, X, prev3d_valid & cur_valid)
-    else:
-        s = relative_scale_unmatched(prev3d, prev3d_valid, X, cur_valid)
-    n_inl = pose_res.mask.sum()
-    enough = (valid.sum() >= cfg.min_pose_points) \
-        & (n_inl >= cfg.min_pose_points)
-    new_pose = torch.where(enough, pose @ inv_se3(make_se3(R, s * t)), pose)
-    s = torch.where(enough, s, torch.ones_like(s))
-    if cfg.scale_chain == "rescaled":
-        X = s * X
-    return new_pose, X, cur_valid & enough, s, n_inl, enough
+    with profiling.span("pose"):
+        p1n = normalize_pixels(pts1, K)
+        p2n = normalize_pixels(pts2, K)
+        with profiling.span("ransac"):
+            res = ransac_essential(
+                p1n, p2n, valid, threshold=cfg.ransac_px_threshold / K[0, 0],
+                n_iters=cfg.ransac_iters, generator=gen, slot=slot,
+            )
+        pose_res = recover_pose(res.E, p1n, p2n, res.inliers)
+        R, t = pose_res.R, pose_res.t
+        # every association is triangulated under the recovered pose; points
+        # failing cheirality or beyond 1e4 baselines leave the scale median
+        z1, z2 = triangulate_depths(R, t, p1n, p2n)
+        X = z1[:, None] * torch.cat([p1n, torch.ones_like(p1n[:, :1])], 1)
+        cur_valid = (valid & torch.isfinite(z1) & torch.isfinite(z2)
+                     & (z1 > 0) & (z2 > 0) & (z1 < 1e4))
+        if cfg.scale_mode == "matched":
+            s = relative_scale_matched(prev3d, X, prev3d_valid & cur_valid)
+        else:
+            s = relative_scale_unmatched(prev3d, prev3d_valid, X, cur_valid)
+        n_inl = pose_res.mask.sum()
+        enough = (valid.sum() >= cfg.min_pose_points) \
+            & (n_inl >= cfg.min_pose_points)
+        new_pose = torch.where(enough, pose @ inv_se3(make_se3(R, s * t)),
+                               pose)
+        s = torch.where(enough, s, torch.ones_like(s))
+        if cfg.scale_chain == "rescaled":
+            X = s * X
+        return new_pose, X, cur_valid & enough, s, n_inl, enough
 
 
 def _start_host_copy(value: torch.Tensor):
@@ -204,7 +211,7 @@ class _AsyncScalarGate:
                 stale = self._step - idx >= self.max_lag
                 if self.mode == "async" and not stale and not event.query():
                     break
-                event.synchronize()
+                profiling.wait(event, "gate_wait")
             self._inbox.pop(0)
             self._apply(idx, host)
         trigger = self._pending_low
@@ -263,11 +270,12 @@ def _finish_tracking_step(state, pyr2, cache2, pts1, pts2, valid, K,
 
 def _track_step(state: TrackingState, img, K, cfg: VOConfig, slot=None):
     """Pure LK-tracking step: the hot path of every frame."""
-    pyr2 = lk_build_pyramid(img, cfg.lk)
-    tracked, status, cache2 = lk_pyramid_track_cached(
-        state.lk_cache, state.pyramid, pyr2, state.pts, state.pts_valid,
-        cfg.lk,
-    )
+    with profiling.span("lk"):
+        pyr2 = lk_build_pyramid(img, cfg.lk)
+        tracked, status, cache2 = lk_pyramid_track_cached(
+            state.lk_cache, state.pyramid, pyr2, state.pts, state.pts_valid,
+            cfg.lk,
+        )
     return _finish_tracking_step(state, pyr2, cache2, state.pts, tracked,
                                  status, K, cfg, fallback=False, slot=slot)
 
@@ -300,6 +308,7 @@ class _Pipeline:
         self.K = torch.as_tensor(np.asarray(K), dtype=torch.float32,
                                  device=self.device)
         self.capacity = _feature_capacity(config)
+        self._steps = 0  # step calls: the identifier of each step's spans
 
     def _image(self, img) -> torch.Tensor:
         return torch.as_tensor(img).to(self.device, torch.float32)
@@ -332,15 +341,17 @@ class TrackingVO(_Pipeline):
     def step(self, state: TrackingState, img, slot=None):
         """One frame. `slot` (ransac_iters, 5) replaces this step's RANSAC
         draws (tests feed the reference's)."""
-        img = self._image(img)
-        if self._gate.update():
-            f1 = self.detect(state.pyramid[0])
-            f2 = self.detect(img)
-            state, out = _refresh_core(state, img, f1, f2, self.K, self.cfg,
-                                       slot)
-        else:
-            state, out = _track_step(state, img, self.K, self.cfg, slot)
-        self._gate.push(out.gate)
+        self._steps += 1
+        with profiling.span("step", self._steps):
+            img = self._image(img)
+            if self._gate.update():
+                f1 = self.detect(state.pyramid[0])
+                f2 = self.detect(img)
+                state, out = _refresh_core(state, img, f1, f2, self.K,
+                                           self.cfg, slot)
+            else:
+                state, out = _track_step(state, img, self.K, self.cfg, slot)
+            self._gate.push(out.gate)
         return state, out
 
 
@@ -413,8 +424,10 @@ class MatchingVO(_Pipeline):
     def step(self, state: MatchingState, img, slot=None):
         """One frame. `slot` (ransac_iters, 5) replaces this step's RANSAC
         draws (tests feed the reference's)."""
-        return _matching_core(state, self.detect(self._image(img)), self.K,
-                              self.cfg, slot)
+        self._steps += 1
+        with profiling.span("step", self._steps):
+            return _matching_core(state, self.detect(self._image(img)),
+                                  self.K, self.cfg, slot)
 
 
 # ---------------------------------------------------------------- driver
