@@ -22,6 +22,7 @@ from ..ops.harris import harris_response
 from ..ops.nms import blocked_topk_2d, nms_mask, topk_stable
 from ..ops.orientation import orientations_at
 from ..ops.pyramid import build_pyramid
+from ..utils import profiling
 
 
 class OrbConfig(NamedTuple):
@@ -76,63 +77,64 @@ def _level_rects(shapes: tuple, origins: tuple, budgets: tuple,
                  for i in range(4))
 
 
-def _detect_canvas(pyr, budgets, config: OrbConfig) -> OrbFeatures:
-    shapes = tuple(tuple(im.shape) for im in pyr)
-    canvas, origins = pack_canvas(pyr)
-    dev = canvas.device
-
-    score = fast_score(canvas, config.fast_threshold, config.fast_n)
-    score = score * interior_mask(canvas.shape, shapes, origins, border=3,
-                                  device=dev)
-    resp = torch.where(nms_mask(score, config.nms_window // 2) & (score > 0),
-                       score, torch.zeros_like(score))
-    harris = harris_response(canvas, config.harris_block, config.harris_k)
-
-    sel_xs, sel_ys, sel_h, sel_valid = [], [], [], []
-    for (Hl, Wl), (oy, ox), budget in zip(shapes, origins, budgets):
-        top, ys_l, xs_l, _ = blocked_topk_2d(
-            resp[oy:oy + Hl, ox:ox + Wl], 2 * budget)
-        cy, cx = ys_l + oy, xs_l + ox
-        h = torch.where(top > 0.0, harris[cy, cx], -torch.inf)
-        top_h, idx = topk_stable(h, budget)
-        valid = top_h > -torch.inf
-        sel_xs.append(cx[idx])
-        sel_ys.append(cy[idx])
-        sel_h.append(torch.where(valid, top_h, torch.zeros_like(top_h)))
-        sel_valid.append(valid)
-    xs, ys = torch.cat(sel_xs), torch.cat(sel_ys)
-    hscore, valid = torch.cat(sel_h), torch.cat(sel_valid)
-
-    rect = _level_rects(shapes, origins, tuple(budgets), dev)
-    angles = orientations_at(canvas, ys, xs, config.patch_size, rect=rect)
-    bits, packed = brief_descriptors(canvas, ys, xs, angles, rect=rect)
-
-    # back to level coordinates, then to level 0 by s^l
-    lvl = torch.cat([torch.full((b,), l, dtype=torch.int32, device=dev)
-                     for l, b in enumerate(budgets)])
-    oxs = torch.cat([torch.full((b,), o[1], device=dev)
-                     for o, b in zip(origins, budgets)])
-    oys = torch.cat([torch.full((b,), o[0], device=dev)
-                     for o, b in zip(origins, budgets)])
-    scale = torch.cat([torch.full((b,), config.scale_factor**l, device=dev)
-                       for l, b in enumerate(budgets)])
-    zero = torch.zeros_like(hscore)
-    v8 = valid[:, None].to(torch.uint8)
-    return OrbFeatures(
-        xs=torch.where(valid, (xs - oxs).float(), zero) * scale,
-        ys=torch.where(valid, (ys - oys).float(), zero) * scale,
-        scores=hscore,
-        angles=torch.where(valid, angles, zero),
-        bits=bits * v8,
-        packed=packed * v8,
-        level=lvl,
-        valid=valid,
-    )
-
-
 def orb_detect_and_compute(img: torch.Tensor, config: OrbConfig = OrbConfig()
                            ) -> OrbFeatures:
     """ORB features for one (H, W) float32 image, all levels packed."""
     budgets = level_budgets(config)
-    pyr = build_pyramid(img, config.n_levels, config.scale_factor)
-    return _detect_canvas(pyr, budgets, config)
+    # one span a stage, together the whole detect
+    with profiling.span("orb_maps"):
+        pyr = build_pyramid(img, config.n_levels, config.scale_factor)
+        shapes = tuple(tuple(im.shape) for im in pyr)
+        canvas, origins = pack_canvas(pyr)
+        dev = canvas.device
+
+        score = fast_score(canvas, config.fast_threshold, config.fast_n)
+        score = score * interior_mask(canvas.shape, shapes, origins, border=3,
+                                      device=dev)
+        resp = torch.where(
+            nms_mask(score, config.nms_window // 2) & (score > 0), score,
+            torch.zeros_like(score))
+        harris = harris_response(canvas, config.harris_block, config.harris_k)
+
+    with profiling.span("orb_select"):
+        sel_xs, sel_ys, sel_h, sel_valid = [], [], [], []
+        for (Hl, Wl), (oy, ox), budget in zip(shapes, origins, budgets):
+            top, ys_l, xs_l, _ = blocked_topk_2d(
+                resp[oy:oy + Hl, ox:ox + Wl], 2 * budget)
+            cy, cx = ys_l + oy, xs_l + ox
+            h = torch.where(top > 0.0, harris[cy, cx], -torch.inf)
+            top_h, idx = topk_stable(h, budget)
+            valid = top_h > -torch.inf
+            sel_xs.append(cx[idx])
+            sel_ys.append(cy[idx])
+            sel_h.append(torch.where(valid, top_h, torch.zeros_like(top_h)))
+            sel_valid.append(valid)
+        xs, ys = torch.cat(sel_xs), torch.cat(sel_ys)
+        hscore, valid = torch.cat(sel_h), torch.cat(sel_valid)
+
+    with profiling.span("orb_describe"):
+        rect = _level_rects(shapes, origins, tuple(budgets), dev)
+        angles = orientations_at(canvas, ys, xs, config.patch_size, rect=rect)
+        bits, packed = brief_descriptors(canvas, ys, xs, angles, rect=rect)
+
+        # back to level coordinates, then to level 0 by s^l
+        lvl = torch.cat([torch.full((b,), l, dtype=torch.int32, device=dev)
+                         for l, b in enumerate(budgets)])
+        oxs = torch.cat([torch.full((b,), o[1], device=dev)
+                         for o, b in zip(origins, budgets)])
+        oys = torch.cat([torch.full((b,), o[0], device=dev)
+                         for o, b in zip(origins, budgets)])
+        scale = torch.cat([torch.full((b,), config.scale_factor**l, device=dev)
+                           for l, b in enumerate(budgets)])
+        zero = torch.zeros_like(hscore)
+        v8 = valid[:, None].to(torch.uint8)
+        return OrbFeatures(
+            xs=torch.where(valid, (xs - oxs).float(), zero) * scale,
+            ys=torch.where(valid, (ys - oys).float(), zero) * scale,
+            scores=hscore,
+            angles=torch.where(valid, angles, zero),
+            bits=bits * v8,
+            packed=packed * v8,
+            level=lvl,
+            valid=valid,
+        )
